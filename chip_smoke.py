@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
+drives the weighted-quorum data plane at deployment scale, and times it.
+
+Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each of which raises on failure so that the script exits non-zero:
+  1. the card's name and power limit (nvidia-smi), and the kernel build;
+  2. K1 (quorum commit) against its plain version on the card, on ragged op
+     counts, n from 1 to 1024, tied arrivals, rows without votes, with and
+     without an explicit threshold; and the port's slice at a small size on
+     the card against the same slice on the CPU;
+  3. the main path: a WeightTracker over 4,194,304 objects x 9 replicas
+     (t_fail = 2) and 20 steps of 65,536 in-flight ops, each step
+     weights(r)[ids] -> core.quorum.quorum_commit -> observe; the kernel's
+     launch count must rise by exactly one per step;
+  4. kernel times beside the plain version's and the bound, as one JSON
+     line {"kernels": [...]}: the kernel's device time (torch.profiler), and
+     the time per call through the wrapper and of the plain version (CUDA
+     events over back-to-back calls, so host overhead included);
+  5. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core import quorum as Q  # noqa: E402
+from repro_torch.core import weights as W  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quorum_commit as qc  # noqa: E402
+
+# Main path: the largest cluster of benchmarks/bench_server_scaling.py
+# (9 replicas, t_fail = 2) and the largest batch of
+# benchmarks/bench_quorum_kernel.py (65,536 ops).
+NUM_OBJECTS = 4_194_304
+N_REPLICAS = 9
+T_FAIL = 2
+OPS = 65_536
+STEPS = 20
+NON_VOTE = 0.10           # share of votes that never arrive
+TIMEOUT_MS = 50.0         # latency a non-vote feeds into the EMA
+
+COMPARE_N = (1, 2, 3, 5, 7, 9, 16, 33, 128, 1024)
+COMPARE_OPS = (1, 127, 1000)
+NEAR_T_RTOL = 1e-6        # rows whose prefix sum comes this close to T are excluded
+WEIGHT_SUM_RTOL = 1e-6    # float32 sums taken in another order
+TIME_SHAPES = ((65_536, 9), (1024, 8), (8192, 8), (8192, 32), (65_536, 16))
+
+# Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20
+
+
+def device_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# inputs, made with numpy from the seed
+# ---------------------------------------------------------------------------
+
+
+def tie_inputs(rng, ops_, n):
+    """Arrivals on a coarse integer grid (heavy ties), 30% non-votes, 5% rows
+    without any vote; half the rows carry uniform weights, half geometric
+    weights in a random rank order; a threshold of 30-70% of the total."""
+    a = rng.integers(0, 5, (ops_, n)).astype(np.float32)
+    a[rng.random((ops_, n)) < 0.3] = np.inf
+    a[rng.random(ops_) < 0.05] = np.inf
+    w = rng.uniform(0.1, 8.0, (ops_, n)).astype(np.float32)
+    ranks = rng.permuted(np.tile(np.arange(n), (ops_, 1)), axis=1)
+    w[::2] = W.geometric_weights_np(n, 1.4)[ranks[::2]]
+    thr = (w.astype(np.float64).sum(-1) * rng.uniform(0.3, 0.7, ops_)).astype(np.float32)
+    return a, w, thr
+
+
+def make_steps(rng, num_objects, ops_, n, steps):
+    """Per step: unique object ids, arrivals (inf = no vote) and the latencies
+    the EMA observes, from per-replica lognormal latencies."""
+    base = rng.lognormal(np.log(2.0), 0.5, n)
+    ids = np.stack([rng.choice(num_objects, ops_, replace=False)
+                    for _ in range(steps)])
+    lat = (base * rng.lognormal(0.0, 0.3, (steps, ops_, n))).astype(np.float32)
+    vote = rng.random((steps, ops_, n)) >= NON_VOTE
+    arrivals = np.where(vote, lat, np.inf).astype(np.float32)
+    observed = np.where(vote, lat, TIMEOUT_MS).astype(np.float32)
+    return ids, arrivals, observed
+
+
+def near_threshold(a, w, thr):
+    """Rows whose float64 prefix sum, in stable arrival order, lies within
+    NEAR_T_RTOL of T: there the float32 crossing depends on summation order."""
+    a, w = a.cpu().double().numpy(), w.cpu().double().numpy()
+    order = np.argsort(a, axis=-1, kind="stable")
+    t_s = np.take_along_axis(a, order, -1)
+    csum = np.cumsum(np.where(np.isfinite(t_s), np.take_along_axis(w, order, -1), 0.0), -1)
+    T = w.sum(-1) / 2 if thr is None else thr.cpu().double().numpy()
+    return torch.from_numpy(np.any(
+        np.abs(csum - T[:, None]) <= NEAR_T_RTOL * np.abs(T)[:, None], axis=-1))
+
+
+def compare(what, got, want, near) -> tuple[float, float]:
+    """Exact on committed, commit_time, quorum_size and members, weight_sum at
+    WEIGHT_SUM_RTOL, outside the near-threshold rows; returns the largest
+    absolute and relative error of the float outputs."""
+    keep = ~near.to(got[0].device)
+    names = ("commit_time", "quorum_size", "committed", "weight_sum", "members")
+    for name, g, e in zip(names, got, want):
+        if (g is None) != (e is None):
+            raise AssertionError(f"{what}: {name} present in only one result")
+        if g is None:
+            continue
+        if g.dtype != e.dtype or g.shape != e.shape:
+            raise AssertionError(f"{what}: {name} {g.dtype}{tuple(g.shape)} vs "
+                                 f"{e.dtype}{tuple(e.shape)}")
+        g, e = g[keep], e[keep]
+        if name == "weight_sum":
+            if not torch.allclose(g, e, rtol=WEIGHT_SUM_RTOL, atol=0.0):
+                raise AssertionError(f"{what}: weight_sum beyond rtol "
+                                     f"{WEIGHT_SUM_RTOL}: {(g - e).abs().max()}")
+        elif not torch.equal(g, e):
+            bad = (g != e).reshape(len(g), -1).any(-1).nonzero()[:5, 0].tolist()
+            raise AssertionError(f"{what}: {name} differs in kept rows {bad}")
+    abs_err = rel_err = 0.0
+    for g, e in ((got[0], want[0]), (got[3], want[3])):
+        g, e = g[keep].double(), e[keep].double()
+        fin = torch.isfinite(e) & (e != 0)
+        if fin.any():
+            diff = (g[fin] - e[fin]).abs()
+            abs_err = max(abs_err, float(diff.max()))
+            rel_err = max(rel_err, float((diff / e[fin].abs()).max()))
+    return abs_err, rel_err
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def check_k1(rng) -> None:
+    """K1 against its plain version on the card."""
+    rows = excluded = 0
+    max_rel = 0.0
+    for n in COMPARE_N:
+        for ops_ in COMPARE_OPS:
+            a_np, w_np, thr_np = tie_inputs(rng, ops_, n)
+            a, w, thr = (torch.from_numpy(x).cuda() for x in (a_np, w_np, thr_np))
+            for th in (None, thr):
+                what = f"K1 n={n} ops={ops_} threshold={th is not None}"
+                got = qc.quorum_commit_cuda(a, w, th, members=True)
+                torch.cuda.synchronize()
+                want = qc.quorum_commit_plain(a, w, th, members=True)
+                near = near_threshold(a, w, th)
+                max_rel = max(max_rel, compare(what, got, want, near)[1])
+                rows += ops_
+                excluded += int(near.sum())
+            got = ops.quorum_commit(a, w)
+            torch.cuda.synchronize()
+            compare(f"ops.quorum_commit n={n} ops={ops_}", got + (None,),
+                    qc.quorum_commit_plain(a, w)[:4] + (None,),
+                    near_threshold(a, w, None))
+    print(f"K1 vs plain on the card: {rows} rows, {excluded} within "
+          f"{NEAR_T_RTOL} of T excluded, max relative error {max_rel!r}")
+
+
+def run_slice(tracker, r, ids, arrivals, observed, on_step=lambda s, w, res: None):
+    """The main path: per step weights(r)[ids] -> quorum_commit -> observe.
+    Calls ``on_step(step, weights, result)`` after each step, outside the
+    timed phases, and keeps nothing, as a caller that uses each result once
+    would. Returns, per step, the seconds each phase took (host clock, the
+    device synchronised after each phase) and, as ``<phase>_host``, the part
+    before the synchronisation."""
+    device = tracker.latency_ema.device
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    spent = []
+    sync()
+    for s in range(len(ids)):
+        times = {}
+
+        def phase(name, fn):
+            t0 = time.perf_counter()
+            result = fn()
+            t1 = time.perf_counter()
+            sync()
+            times[name] = time.perf_counter() - t0
+            times[name + "_host"] = t1 - t0
+            return result
+
+        w = phase("weights", lambda: tracker.weights(r)[ids[s]])
+        res = phase("quorum", lambda: Q.quorum_commit(arrivals[s], w))
+        phase("observe", lambda: tracker.observe(ids[s], observed[s]))
+        spent.append(times)
+        on_step(s, w, res)
+    return spent
+
+
+def check_small_slice(rng) -> None:
+    """The slice at 64 objects x 5 replicas x 5 steps of 16 ids on the card
+    and on the CPU: results equal (weight_sum at rtol), EMA at rtol 1e-6."""
+    n = 5
+    r = W.solve_steepness(n, 2)
+    steps = make_steps(rng, 64, 16, n, 5)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tracker = W.WeightTracker.init(64, n, device=device)
+        data = [torch.from_numpy(x).to(device) for x in steps]
+        out = []
+        run_slice(tracker, r, *data, on_step=lambda s, w, res: out.append((w, res)))
+        runs[device] = (out, tracker)
+    for s, ((wg, rg), (wc, rc)) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        torch.testing.assert_close(wg.cpu(), wc, rtol=1e-6, atol=0.0)
+        got = (rg.commit_time, rg.quorum_size, rg.committed, rg.weight_sum, rg.members)
+        want = (rc.commit_time, rc.quorum_size, rc.committed, rc.weight_sum, rc.members)
+        compare(f"slice step {s}", tuple(x.cpu() for x in got), want,
+                near_threshold(torch.from_numpy(steps[1][s]), wc, None))
+    torch.testing.assert_close(runs["cuda"][1].latency_ema.cpu(),
+                               runs["cpu"][1].latency_ema, rtol=1e-6, atol=0.0)
+    print("slice 64 objects x 5 replicas x 5 steps: card equals CPU")
+
+
+def self_times_us(prof, on_device: bool) -> dict[str, float]:
+    """Self time (us) by name in a profiler run: kernels and copies on the
+    device, or operators and CUDA API calls on the host."""
+    from torch.autograd import DeviceType
+    kind = DeviceType.CUDA if on_device else DeviceType.CPU
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == kind:
+            took = e.self_device_time_total if on_device else e.self_cpu_time_total
+            out[e.key] = out.get(e.key, 0.0) + took
+    return out
+
+
+def profile_steps(tracker, r, ids, arrivals, observed) -> dict:
+    """Device busy and idle share and the top kernels over a few main-path
+    steps, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_slice(tracker, r, ids, arrivals, observed)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    times = self_times_us(prof, on_device=True)
+    busy_us = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(self_times_us(prof, on_device=False).items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": len(ids), "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+            "top_host_ms": {k[:80]: v / 1e3 for k, v in host}}
+
+
+def main_path(rng) -> dict:
+    r = W.solve_steepness(N_REPLICAS, T_FAIL)
+    t0 = time.perf_counter()
+    ids, arrivals, observed = (torch.from_numpy(x).cuda() for x in
+                               make_steps(rng, NUM_OBJECTS, OPS, N_REPLICAS, STEPS))
+    tracker = W.WeightTracker.init(NUM_OBJECTS, N_REPLICAS, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    committed_share = []
+    errors = []
+
+    def check_step(s, w, res):
+        if res.members.shape != (OPS, N_REPLICAS) or res.committed.shape != (OPS,):
+            raise AssertionError(f"step {s}: result shapes {res.members.shape}")
+        c = res.committed
+        if not (torch.isfinite(res.commit_time[c]).all()
+                and torch.isinf(res.commit_time[~c]).all()
+                and ((res.quorum_size[c] >= 1) & (res.quorum_size[c] <= N_REPLICAS)).all()
+                and (res.quorum_size[~c] == 0).all()
+                and (res.members.sum(-1, dtype=torch.int32) == res.quorum_size).all()
+                and (res.weight_sum[c] >= w.sum(-1)[c] / 2 * (1 - NEAR_T_RTOL)).all()):
+            raise AssertionError(f"step {s}: inconsistent QuorumResult")
+        committed_share.append(float(c.float().mean()))
+        if s == STEPS - 1:
+            errors.extend(compare(
+                "main path, last step, vs plain",
+                (res.commit_time, res.quorum_size, res.committed, res.weight_sum,
+                 res.members),
+                qc.quorum_commit_plain(arrivals[s], w, members=True),
+                near_threshold(arrivals[s], w, None)))
+
+    qc.launches = 0
+    spent = run_slice(tracker, r, ids, arrivals, observed, on_step=check_step)
+    launches = qc.launches
+    if launches != STEPS:
+        raise AssertionError(f"main path launched K1 {launches} times in {STEPS} steps")
+    if min(committed_share) < 0.9:
+        raise AssertionError(f"committed share {min(committed_share)} < 0.9 "
+                             f"with {NON_VOTE:.0%} non-votes and t_fail={T_FAIL}")
+    if not torch.isfinite(tracker.latency_ema).all():
+        raise AssertionError("latency EMA not finite")
+    max_abs, max_rel = errors
+    total_s = sum(x[k] for x in spent for k in ("weights", "quorum", "observe"))
+
+    summary = {
+        "objects": NUM_OBJECTS, "replicas": N_REPLICAS, "t_fail": T_FAIL,
+        "r": r, "ops_per_step": OPS, "steps": STEPS, "launches": launches,
+        "setup_s": setup_s, "ops_per_s": STEPS * OPS / total_s,
+        "step_ms": 1e3 * total_s / STEPS,
+        **{f"{k}_ms": 1e3 * sum(x[k] for x in spent) / STEPS for k in spent[0]},
+        **{f"{k}_median_ms": 1e3 * float(np.median([x[k] for x in spent]))
+           for k in spent[0]},
+        "committed_share": sum(committed_share) / STEPS,
+        "max_abs_err": max_abs, "max_rel_err": max_rel,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "profile": profile_steps(tracker, r, ids[:5], arrivals[:5], observed[:5]),
+    }
+    print(f"main path: {STEPS} steps x {OPS} ops over {NUM_OBJECTS} objects x "
+          f"{N_REPLICAS} replicas: {summary['ops_per_s']:.0f} ops/s, "
+          f"{summary['step_ms']:.3f} ms/step (weights {summary['weights_ms']:.3f}, "
+          f"quorum {summary['quorum_ms']:.3f}, observe {summary['observe_ms']:.3f})")
+    print(json.dumps({"main_path": summary}))
+    return summary
+
+
+def event_ms(fn, iters: int) -> float:
+    """Time per call on the device's clock (CUDA events) over back-to-back
+    calls; host-bound when a call's host work outlasts its kernels."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float | None:
+    """Device time per call of the kernels ``fn`` launches (torch.profiler),
+    or None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    busy_us = sum(self_times_us(prof, on_device=True).values())
+    return busy_us / 1e3 / iters if busy_us else None
+
+
+def time_k1(rng, ops_, n, members: bool) -> dict:
+    """Kernel and plain times at one shape, cycling through enough input
+    copies to exceed L2, so that inputs come from device memory."""
+    _, arrivals, _ = make_steps(rng, 4 * ops_, ops_, n, 1)
+    ranks = rng.permuted(np.tile(np.arange(n), (ops_, 1)), axis=1)
+    weights = W.geometric_weights_np(n, W.solve_steepness(n, 1))[ranks]
+    moved = 8 * ops_ * n + 13 * ops_ + (ops_ * n if members else 0)
+    copies = max(1, min(64, math.ceil(2 * L2_BYTES / moved)))
+    bufs = [(torch.from_numpy(arrivals[0]).cuda(), torch.from_numpy(weights).cuda())
+            for _ in range(copies)]
+
+    def kernel(i):
+        return qc.quorum_commit_cuda(*bufs[i % copies], members=members)
+
+    def plain(i):
+        return qc.quorum_commit_plain(*bufs[i % copies], members=members)
+
+    call_ms = event_ms(kernel, 200)
+    plain_ms = event_ms(plain, 50)
+    kernel_device_ms = device_ms(kernel, 200)
+    # the main path's own entry point, back to back, when it is the one timed
+    core_ms = event_ms(lambda i: Q.quorum_commit(*bufs[i % copies]), 200) if members else None
+    bytes_s = moved / HBM_BYTES_PER_S
+    operations_s = 2 * ops_ * n / FP32_OPS_PER_S     # threshold sum and prefix sum
+    return {"ops": ops_, "n": n, "members": members,
+            "kernel_ms": kernel_device_ms if kernel_device_ms is not None else call_ms,
+            "kernel_timed_by": "profiler" if kernel_device_ms is not None else "events",
+            "call_ms": call_ms, "core_call_ms": core_ms, "plain_ms": plain_ms,
+            "plain_device_ms": device_ms(plain, 50),
+            "bound_ms": 1e3 * max(bytes_s, operations_s),
+            "bound_by": "bytes" if bytes_s >= operations_s else "operations",
+            "bytes": moved}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    rng = np.random.default_rng(args.seed)
+    card = device_line()
+    print(card)
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
+
+    check_k1(rng)
+    check_small_slice(rng)
+    summary = main_path(rng)
+
+    shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
+    shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
+    main = shapes[0]
+    print(json.dumps({"kernels": [{
+        "name": "quorum_commit", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
+        "replaces": "src/repro/kernels/quorum_commit.py:103",
+        "launches": summary["launches"], "max_abs_err": summary["max_abs_err"],
+        "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
+        "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "shape": [OPS, N_REPLICAS], "card": card,
+        "shapes": shapes}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
