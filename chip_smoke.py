@@ -1,27 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
-drives the weighted-quorum data plane at deployment scale, and times it.
+drives the weighted-quorum data plane and zamba2-1.2b serving at full size,
+and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
     python3 chip_smoke.py [--seed N]
 
 Phases, each of which raises on failure so that the script exits non-zero:
-  1. the card's name and power limit (nvidia-smi), and the kernel build;
+  1. the card's name and power limit (nvidia-smi), and the kernel build (one
+     nvcc per source, all started together);
   2. K1 (quorum commit) against its plain version on the card, on ragged op
      counts, n from 1 to 1024, tied arrivals, rows without votes, with and
-     without an explicit threshold; and the port's slice at a small size on
-     the card against the same slice on the CPU;
-  3. the main path: a WeightTracker over 4,194,304 objects x 9 replicas
-     (t_fail = 2) and 20 steps of 65,536 in-flight ops, each step
-     weights(r)[ids] -> core.quorum.quorum_commit -> observe; the kernel's
-     launch count must rise by exactly one per step;
-  4. kernel times beside the plain version's and the bound, as one JSON
-     line {"kernels": [...]}: the kernel's device time (torch.profiler), and
-     the time per call through the wrapper and of the plain version (CUDA
-     events over back-to-back calls, so host overhead included);
-  5. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+     without an explicit threshold; and the port's quorum slice at a small
+     size on the card against the same slice on the CPU;
+  3. the quorum main path: a WeightTracker over 4,194,304 objects x 9
+     replicas (t_fail = 2) and 20 steps of 65,536 in-flight ops, each step
+     weights(r)[ids] -> core.quorum.quorum_commit -> observe; K1's launch
+     count must rise by exactly one per step;
+  4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
+     versions on the card, and the smoke zamba2 (float32) served on the card
+     against the same on the CPU;
+  5. the serving main path: zamba2-1.2b at full width and depth (bf16,
+     random weights from --seed), 8 prompts of 2048 tokens, then 32 greedy
+     decode steps; K3 must launch 38 times and K2 6 times in the prefill and
+     neither in decode; time to first token, prefill and decode rates, peak
+     memory, and a profiled prefill;
+  6. kernel times beside the plain version's, the bound and the library's,
+     as one JSON line {"kernels": [...]}: the kernel's device time
+     (torch.profiler), the time per call through the wrapper and of the plain
+     version (CUDA events over back-to-back calls, so host overhead
+     included);
+  7. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -34,16 +45,24 @@ import sys
 import time
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import quorum as Q  # noqa: E402
 from repro_torch.core import weights as W  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quorum_commit as qc  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import family  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 
 # Main path: the largest cluster of benchmarks/bench_server_scaling.py
 # (9 replicas, t_fail = 2) and the largest batch of
@@ -62,9 +81,19 @@ NEAR_T_RTOL = 1e-6        # rows whose prefix sum comes this close to T are excl
 WEIGHT_SUM_RTOL = 1e-6    # float32 sums taken in another order
 TIME_SHAPES = ((65_536, 9), (1024, 8), (8192, 8), (8192, 32), (65_536, 16))
 
+# Serving main path: zamba2-1.2b as configured (38 layers, d 2048, bf16),
+# 8 requests of 2048-token prompts, then 32 greedy decode steps.
+SERVE_ARCH = "zamba2-1.2b"
+SERVE_BATCH = 8
+SERVE_PROMPT = 2048
+SERVE_DECODE = 32
+SMOKE_PROMPT = 64         # the small hybrid slice, card against CPU
+SMOKE_DECODE = 3
+
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 
 
@@ -399,6 +428,295 @@ def time_k1(rng, ops_, n, members: bool) -> dict:
             "bytes": moved}
 
 
+# ---------------------------------------------------------------------------
+# K2, K3 and the serving path (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def max_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
+
+
+def attention_inputs(gen, B, S, H, KV, hd, dtype):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def ssd_inputs(gen, B, nc, Q_, nh, hp, N, xdtype=torch.bfloat16):
+    """K3's inputs as mixer_forward forms them: x from the conv, dt from a
+    softplus, seg the per-chunk cumsum of dt*A, B and C in float32."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = randn(B, nc, Q_, nh, hp).to(xdtype)
+    dt = torch.nn.functional.softplus(randn(B, nc, Q_, nh) - 2.0)
+    A = -torch.exp(0.5 * randn(nh))
+    seg = torch.cumsum(dt * A, dim=2)
+    return x, dt, seg, randn(B, nc, Q_, N), randn(B, nc, Q_, N)
+
+
+def check_k2(gen) -> dict:
+    """K2 against its plain version on the card (the plain side's products
+    without TF32): bf16 at 2e-2, float32 at 1e-4."""
+    cases = [((2, 2048, 32, 32, 64), torch.bfloat16, True),    # zamba2 prefill, B 2
+             ((2, 2048, 32, 32, 64), torch.float32, True),
+             ((1, 512, 16, 8, 128), torch.bfloat16, True),     # GQA, hd 128
+             ((2, 200, 8, 4, 64), torch.float32, True),        # ragged S
+             ((2, 200, 8, 4, 64), torch.bfloat16, True),
+             ((1, 384, 4, 2, 32), torch.float32, False),       # non-causal
+             ((2, 64, 4, 4, 16), torch.float32, True)]         # smoke heads
+    errors = {}
+    for shape, dtype, causal in cases:
+        q, k, v = attention_inputs(gen, *shape, dtype)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        errors[f"{shape} {str(dtype)[6:]} causal={causal}"] = max_err(got, want)
+    print(f"K2 vs plain on the card, max abs error: {json.dumps(errors)}")
+    return errors
+
+
+def check_k3(gen) -> dict:
+    """K3 against its plain version on the card at atol/rtol 1e-4."""
+    cases = [(2, 16, 128, 64, 64, 64),      # zamba2 prefill, B 2
+             (1, 4, 128, 48, 64, 128),      # mamba2-780m, N 128
+             (2, 8, 64, 64, 64, 64),        # Q 64
+             (1, 2, 128, 4, 128, 128)]      # hp = N = Q = 128
+    errors = {}
+    for shape in cases:
+        args = ssd_inputs(gen, *shape)
+        got = ssd.ssd_intra_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        want = ssd.ssd_intra_chunk_plain(*args)
+        errs = []
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+            errs.append(max_err(g, w))
+        errors[str(shape)] = errs
+    print(f"K3 vs plain on the card, max abs error (y, state, decay): "
+          f"{json.dumps(errors)}")
+    return errors
+
+
+def serve_run(cfg, params, tokens, decode_steps, cache_len):
+    """Prefill then greedy decode through the serving entry points; returns
+    the logits of every step and the tokens fed."""
+    prefill = serve.make_prefill_step(cfg, cache_len=cache_len)
+    decode = serve.make_decode_step(cfg)
+    B, S = tokens.shape
+    logits, cache = prefill(params, {"tokens": tokens})
+    out, fed = [logits], []
+    for i in range(decode_steps):
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        fed.append(tok)
+        pos = torch.full((B,), S + i, dtype=torch.int64, device=tokens.device)
+        logits, cache = decode(params, cache, tok, pos)
+        out.append(logits)
+    return out, fed, cache
+
+
+def check_small_hybrid(seed) -> float:
+    """The smoke zamba2 in float32, prefill plus decode, on the card against
+    the CPU: logits at atol/rtol 1e-4 and equal greedy tokens."""
+    cfg = dataclasses.replace(configs.smoke(SERVE_ARCH), param_dtype="float32",
+                              compute_dtype="float32")
+    fam = family(cfg)
+    params = fam.init_params(cfg, seed, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab, (2, SMOKE_PROMPT)))
+    runs = {}
+    launched = (fa.launches, ssd.launches)
+    for device in ("cpu", "cuda"):
+        on = L.tree_map(lambda t: t.to(device), params)
+        runs[device] = serve_run(cfg, on, tokens.to(device), SMOKE_DECODE,
+                                 SMOKE_PROMPT + SMOKE_DECODE + 1)
+    torch.cuda.synchronize()
+    if (fa.launches, ssd.launches) == launched:
+        raise AssertionError("the small hybrid slice launched no kernel on the card")
+    err = 0.0
+    for step, (g, w) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"step {step}: {m}")
+        err = max(err, max_err(g.cpu(), w))
+    for step, (g, w) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"greedy tokens differ at decode step {step}")
+    for name, w in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][name].cpu(), w, atol=1e-4, rtol=1e-4)
+    print(f"smoke zamba2 (float32) prefill + {SMOKE_DECODE} decode steps: card "
+          f"equals CPU, logits max abs error {err!r}, greedy tokens equal")
+    return err
+
+
+def profile_device(fn) -> dict:
+    """Device busy and idle share and the top kernels over one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    times = self_times_us(prof, on_device=True)
+    busy_us = sum(times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
+    host = sorted(self_times_us(prof, on_device=False).items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+            "device_launches": sum(e.count for e in prof.key_averages()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA),
+            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+            "top_host_ms": {k[:80]: v / 1e3 for k, v in host}}
+
+
+def serving_path(seed) -> dict:
+    """zamba2-1.2b at full width and depth: 8 x 2048-token prompts, then
+    SERVE_DECODE greedy decode steps, through the serving entry points."""
+    cfg = configs.get(SERVE_ARCH)
+    fam = family(cfg)
+    cache_len = SERVE_PROMPT + SERVE_DECODE
+    t0 = time.perf_counter()
+    params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                             device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prefill = serve.make_prefill_step(cfg, cache_len=cache_len)
+    decode = serve.make_decode_step(cfg)
+    prefill(params, {"tokens": tokens})          # warm-up: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+
+    qc.launches = fa.launches = ssd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    ttft_s = time.perf_counter() - t0
+    prefill_launches = {"quorum_commit": qc.launches,
+                        "flash_attention": fa.launches, "ssd_scan": ssd.launches}
+    want = {"quorum_commit": 0, "flash_attention": fam.n_shared(cfg),
+            "ssd_scan": cfg.n_layers}
+    if prefill_launches != want:
+        raise AssertionError(f"prefill launched {prefill_launches}, expected {want}")
+    if logits.shape != (SERVE_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite")
+    step_s = []
+    tok = torch.argmax(logits[:, -1], -1)[:, None]
+    for i in range(SERVE_DECODE):
+        pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i, dtype=torch.int64,
+                         device="cuda")
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, pos)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"decode step {i}: logits not finite")
+    after = {"quorum_commit": qc.launches, "flash_attention": fa.launches,
+             "ssd_scan": ssd.launches}
+    if after != prefill_launches:
+        raise AssertionError(f"decode launched kernels: {after} after {prefill_launches}")
+    if not all(torch.isfinite(t).all() for t in cache.values()):
+        raise AssertionError("decode cache not finite")
+    if cache["shared_k"][:, :, :cache_len].abs().amax(dim=(1, 3, 4)).min() == 0:
+        raise AssertionError("a KV cache position was never written")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_s = sum(step_s)
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "dtype": cfg.compute_dtype,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SERVE_DECODE,
+        "setup_s": setup_s, "ttft_s": ttft_s,
+        "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / ttft_s,
+        "decode_ms_per_step": 1e3 * decode_s / SERVE_DECODE,
+        "decode_median_ms": 1e3 * float(np.median(step_s)),
+        "decode_tokens_per_s": SERVE_BATCH * SERVE_DECODE / decode_s,
+        "peak_mem_gib": peak, "launches": prefill_launches,
+        "profile": profile_device(lambda: prefill(params, {"tokens": tokens})),
+        "decode_profile": profile_device(lambda: decode(
+            params, cache, tok, torch.full((SERVE_BATCH,), cache_len - 1,
+                                           dtype=torch.int64, device="cuda"))),
+    }
+    print(f"serving {cfg.name}: {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, "
+          f"time to first token {ttft_s:.3f} s ({summary['prefill_tokens_per_s']:.0f} "
+          f"tokens/s), decode {summary['decode_ms_per_step']:.2f} ms/step "
+          f"({summary['decode_tokens_per_s']:.1f} tokens/s), peak {peak:.2f} GiB")
+    print(json.dumps({"serving_path": summary}))
+    return summary
+
+
+def time_k2(gen) -> dict:
+    """K2 at the serving prefill's shape: kernel, plain and SDPA times."""
+    B, S, H, KV, hd = SERVE_BATCH, SERVE_PROMPT, 32, 32, 64
+    q, k, v = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, hd) views
+
+    def kernel(i):
+        return fa.flash_attention_cuda(q, k, v, causal=True)
+
+    def plain(i):
+        return fa.flash_attention_plain(q, k, v, causal=True)
+
+    def library(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    err = max_err(kernel(0), plain(0))
+    lib_err = max_err(kernel(0), library(0).transpose(1, 2))
+    ops_ = 4 * B * H * hd * S * (S + 1) / 2          # q k^T and p v, causal half
+    moved = 2 * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    return timing("flash_attention", [B, S, H, KV, hd], kernel, plain, library,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  max_abs_err=err, library_max_abs_err=lib_err)
+
+
+def time_k3(gen) -> dict:
+    """K3 at the serving prefill's shape: kernel and plain times."""
+    B, nc, Q_, nh, hp, N = SERVE_BATCH, SERVE_PROMPT // 128, 128, 64, 64, 64
+    args = ssd_inputs(gen, B, nc, Q_, nh, hp, N)
+
+    def kernel(i):
+        return ssd.ssd_intra_chunk_cuda(*args)
+
+    def plain(i):
+        return ssd.ssd_intra_chunk_plain(*args)
+
+    err = max(max_err(g, w) for g, w in zip(kernel(0), plain(0)))
+    tri = Q_ * (Q_ + 1) / 2
+    ops_ = B * nc * (2 * N * tri + nh * (2 * hp * tri + 2 * Q_ * hp * N))
+    moved = (B * nc * Q_ * nh * hp * (2 + 4) + 2 * B * nc * Q_ * nh * 4
+             + 2 * B * nc * Q_ * N * 4 + B * nc * nh * hp * N * 4 + B * nc * nh * 4)
+    return timing("ssd_scan", [B, nc, Q_, nh, hp, N], kernel, plain, None,
+                  ops_ / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S, max_abs_err=err)
+
+
+def library_times(library) -> dict:
+    """The library call's device time, or its time per call (CUDA events)
+    where the profiler records no device time for it."""
+    if library is None:
+        return {"library_ms": None}
+    call_ms = event_ms(library, 10)
+    device = device_ms(library, 10)
+    return {"library_ms": device if device is not None else call_ms,
+            "library_timed_by": "profiler" if device is not None else "events",
+            "library_call_ms": call_ms}
+
+
+def timing(name, shape, kernel, plain, library, ops_s, bytes_s, **extra) -> dict:
+    kernel_ms = device_ms(kernel, 10)
+    return {"name": name, "shape": shape,
+            "kernel_ms": kernel_ms if kernel_ms is not None else event_ms(kernel, 10),
+            "kernel_timed_by": "profiler" if kernel_ms is not None else "events",
+            "call_ms": event_ms(kernel, 10), "plain_ms": event_ms(plain, 3),
+            "plain_device_ms": device_ms(plain, 3),
+            **library_times(library),
+            "bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "operations_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s, **extra}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -418,10 +736,19 @@ def main() -> int:
     check_small_slice(rng)
     summary = main_path(rng)
 
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain sides in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    check_k2(gen)
+    check_k3(gen)
+    check_small_hybrid(args.seed)
+    serving = serving_path(args.seed)
+
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
-    print(json.dumps({"kernels": [{
+    k2, k3 = time_k2(gen), time_k3(gen)
+    kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
         "replaces": "src/repro/kernels/quorum_commit.py:103",
@@ -430,7 +757,15 @@ def main() -> int:
         "call_ms": main["call_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "shape": [OPS, N_REPLICAS], "card": card,
-        "shapes": shapes}]}))
+        "shapes": shapes}]
+    for k, replaces in ((k2, "src/repro/kernels/flash_attention.py:91"),
+                        (k3, "src/repro/kernels/ssd_scan.py:64")):
+        kernels.append({
+            "name": k["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k['name']}.cu",
+            "replaces": replaces, "launches": serving["launches"][k["name"]],
+            "ms": k["kernel_ms"], "card": card, **k})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

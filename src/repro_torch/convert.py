@@ -2,8 +2,13 @@
 
 The JAX package's state leaves it as numpy (``np.asarray`` of a weight
 matrix, of a ``WeightTracker``'s ``latency_ema``, of each field of a
-``QuorumResult``); these functions turn such arrays into the port's objects
-on a given device, and back. They import nothing from the JAX package.
+``QuorumResult``; ``jax.tree.map(np.asarray, params)`` for a model's
+parameters or decode cache); these functions turn such arrays into the
+port's objects on a given device, and back. They import nothing from the
+JAX package.
+
+bfloat16 arrays from JAX have numpy dtype ``ml_dtypes.bfloat16``, which
+torch cannot read; they cross bit for bit through a uint16 view.
 """
 
 from __future__ import annotations
@@ -22,16 +27,55 @@ _RESULT_DTYPES = (torch.bool, torch.float32, torch.int32, torch.float32,
                   torch.bool)
 
 
+def _is_bfloat16(array: np.ndarray) -> bool:
+    return array.dtype.name == "bfloat16"
+
+
+def _from_numpy(array) -> torch.Tensor:
+    """A CPU tensor with the array's dtype and a copy of its data (arrays the
+    JAX package hands out are read-only)."""
+    array = np.asarray(array)
+    if _is_bfloat16(array):
+        return torch.from_numpy(array.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(array.copy())
+
+
 def to_tensor(array, dtype: torch.dtype = torch.float32, *,
               device: str | torch.device | None = None) -> torch.Tensor:
-    """A copy of a numpy array (e.g. a weight matrix) as a tensor on
-    ``device``; arrays the JAX package hands out are read-only."""
-    return torch.tensor(np.asarray(array), dtype=dtype,
-                        device=default_device(device))
+    """A copy of a numpy array (e.g. a weight matrix) as a ``dtype`` tensor
+    on ``device``."""
+    return _from_numpy(array).to(device=default_device(device), dtype=dtype)
 
 
 def to_numpy(tensor: torch.Tensor) -> np.ndarray:
-    return tensor.detach().cpu().numpy()
+    """A numpy copy of a tensor; bfloat16 comes back as ``ml_dtypes.bfloat16``,
+    the dtype JAX gives such arrays."""
+    tensor = tensor.detach().to("cpu", copy=True)
+    if tensor.dtype == torch.bfloat16:
+        import ml_dtypes    # numpy's bfloat16, installed beside JAX
+        return tensor.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return tensor.numpy()
+
+
+def params_from_jax(tree, *, device: str | torch.device | None = None):
+    """A nested dict of numpy arrays, as ``jax.tree.map(np.asarray, params)``
+    gives it, as the port's dict of tensors on ``device``, dtypes kept."""
+    device = default_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device=device) for k, v in tree.items()}
+    return _from_numpy(tree).to(device)
+
+
+def params_to_numpy(tree):
+    """The port's nested dict of tensors as numpy arrays, dtypes kept."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return to_numpy(tree)
+
+
+# a decode cache is a dict of arrays, as parameters are
+cache_from_jax = params_from_jax
+cache_to_numpy = params_to_numpy
 
 
 def weight_tracker(latency_ema, decay: float, *,

@@ -1,0 +1,82 @@
+"""Serving step builders (prefill + batched decode) and a small CLI demo
+(port of ``repro.launch.serve``).
+
+The decode step updates the cache in place (the JAX package donates it).
+Sharded serving (``launch/shardings``) waits for a later slice.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import configs, default_device
+from repro_torch.models import family
+
+
+def make_prefill_step(cfg, cache_len=None):
+    fam = family(cfg)
+
+    def prefill_step(params, batch):
+        return fam.prefill(cfg, params, batch, cache_len=cache_len)
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    fam = family(cfg)
+
+    def decode_step(params, cache, token, pos):
+        return fam.decode_step(cfg, params, cache, token, pos)
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# CLI demo: greedy decode a few tokens with the smoke config (always)
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = configs.smoke(args.arch)
+    fam = family(cfg)
+    device = default_device(args.device)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = fam.init_params(cfg, gen, device=device)
+    B, S = args.batch, args.prompt_len
+    total = S + args.gen
+
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=gen,
+                                     device=device)}
+    prefill = make_prefill_step(cfg, cache_len=total)
+    decode = make_decode_step(cfg)
+
+    t0 = time.time()
+    with torch.inference_mode():
+        logits, cache = prefill(params, batch)
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        out = [tok]
+        for i in range(args.gen - 1):
+            pos = torch.full((B,), S + i, dtype=torch.int64, device=device)
+            logits, cache = decode(params, cache, tok, pos)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            out.append(tok)
+    toks = torch.cat(out, dim=1)
+    print(f"generated {tuple(toks.shape)} in {time.time()-t0:.2f}s:")
+    print(toks.cpu())
+    return toks
+
+
+if __name__ == "__main__":
+    main()

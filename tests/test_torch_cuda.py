@@ -88,3 +88,112 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     big = torch.zeros(2, qc.MAX_REPLICAS + 1, device=cuda)
     with pytest.raises(ValueError, match="at most"):
         qc.quorum_commit_cuda(big, big)
+
+
+# ---------------------------------------------------------------------------
+# K2 (flash attention) and K3 (SSD intra-chunk) against their plain versions.
+# float32 at 1e-4 (the same float32 arithmetic summed in another order; the
+# plain side's matrix products without TF32), bfloat16 at 2e-2 (the plain
+# version rounds its logits to bf16 before the softmax, the kernel does not).
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def attention_inputs(seed, B, S, H, KV, hd, dtype, device):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 8, 2, 128, True),
+    (2, 96, 2, 1, 64, False), (1, 1, 2, 2, 32, True), (1, 1024, 2, 2, 64, True),
+    (2, 64, 4, 4, 16, True)])
+def test_flash_attention_kernel_matches_plain(no_tf32, dtype, tol, B, S, H, KV, hd, causal):
+    q, k, v = attention_inputs(S + hd, B, S, H, KV, hd, dtype, no_tf32)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def ssd_inputs(seed, B, nc, Q, nh, hp, N, xdtype, device):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((B, nc, Q, nh, hp), generator=g, device=device).to(xdtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, nc, Q, nh), generator=g,
+                                                  device=device)) * 0.1
+    A = -torch.exp(0.3 * torch.randn(nh, generator=g, device=device))
+    seg = torch.cumsum(dt * A, dim=2)
+    Bm, Cm = (torch.randn((B, nc, Q, N), generator=g, device=device) for _ in range(2))
+    return x, dt, seg, Bm, Cm
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", [
+    (2, 2, 128, 4, 64, 64, torch.bfloat16), (1, 3, 64, 9, 32, 16, torch.float32),
+    (1, 2, 128, 2, 128, 128, torch.float32), (1, 1, 33, 3, 12, 20, torch.float32),
+    (2, 1, 16, 16, 8, 4, torch.bfloat16)])
+def test_ssd_kernel_matches_plain(no_tf32, B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N, B, nc, Q, nh, hp, N, xdtype, no_tf32)
+    before = ssd.launches
+    got = ssd.ssd_intra_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    for g, w in zip(got, ssd.ssd_intra_chunk_plain(*args)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_entry_points_launch_k2_and_k3(no_tf32):
+    q, k, v = attention_inputs(0, 1, 64, 2, 2, 32, torch.float32, no_tf32)
+    x, dt, seg, Bm, Cm = ssd_inputs(1, 1, 2, 32, 2, 8, 4, torch.float32, no_tf32)
+    fa_before, ssd_before = fa.launches, ssd.launches
+    ops.flash_attention(q, k, v, causal=True)
+    y, final = ops.ssd(x.reshape(1, 64, 2, 8), dt.reshape(1, 64, 2),
+                       -torch.ones(2, device=no_tf32), Bm.reshape(1, 64, 4),
+                       Cm.reshape(1, 64, 4), torch.ones(2, device=no_tf32), 32)
+    torch.cuda.synchronize()
+    assert (fa.launches, ssd.launches) == (fa_before + 1, ssd_before + 1)
+    assert torch.isfinite(y).all() and torch.isfinite(final).all()
+
+
+def test_k2_and_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        r = torch.zeros(1, 8, 2, 48, device=cuda)
+        fa.flash_attention_cuda(r, r, r)
+    args = ssd_inputs(0, 1, 1, 16, 2, 8, 4, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_chunk_cuda(args[0].double(), *args[1:])
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_chunk_cuda(args[0], args[1].bfloat16(), *args[2:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd.ssd_intra_chunk_cuda(args[0], args[1].cpu(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        x = args[0].transpose(3, 4).contiguous().transpose(3, 4)
+        ssd.ssd_intra_chunk_cuda(x, *args[1:])
+    big = ssd_inputs(0, 1, 1, 129, 1, 8, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="up to|from 1 to"):
+        ssd.ssd_intra_chunk_cuda(*big)

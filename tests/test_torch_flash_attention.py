@@ -1,0 +1,97 @@
+"""K2 in the port: its plain version against the Pallas kernel and the JAX
+reference, its routing and its launch wrapper's checks (on the CPU).
+
+The Pallas kernel runs in interpret mode on the cases of
+``tests/test_kernels.py`` (flash attention). Tolerances are those of that
+file: 2e-5 in float32 (the same arithmetic summed in another order) and
+2e-2 in bfloat16 (the reference rounds the logits to bf16 before the
+softmax, the kernel does not). A ragged S, which the Pallas kernel refuses,
+is held against ``attend_full`` alone. The CUDA kernel is tested on a GPU
+by ``tests/test_torch_cuda.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def inputs(seed, B, S, H, KV, hd, dtype):
+    rng = np.random.default_rng(seed)
+    jdt, tdt, _ = DTYPES[dtype]
+    out = []
+    for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)):
+        j = jnp.asarray(rng.normal(size=shape), jdt)
+        out.append((j, convert.to_tensor(np.asarray(j), tdt, device="cpu")))
+    return out
+
+
+def check(got, want, dtype, tol=None):
+    tol = tol or DTYPES[dtype][2]
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,hd,bq,bk", [
+    (1, 256, 4, 2, 64, 128, 128),
+    (2, 256, 4, 4, 32, 64, 128),
+    (1, 512, 8, 2, 64, 128, 256),
+])
+def test_plain_matches_pallas_interpret_and_ref(dtype, B, S, H, KV, hd, bq, bk):
+    (jq, q), (jk, k), (jv, v) = inputs(S + H, B, S, H, KV, hd, dtype)
+    got = fa.flash_attention_plain(q, k, v, causal=True)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    check(got, pallas_flash(jq, jk, jv, causal=True, block_q=bq, block_k=bk,
+                            interpret=True), dtype)
+    check(got, jref.flash_attention_ref(jq, jk, jv, causal=True), dtype)
+    check(ref.flash_attention_ref(q, k, v, causal=True),
+          jref.flash_attention_ref(jq, jk, jv, causal=True), dtype)
+
+
+def test_plain_non_causal():
+    (jq, q), (jk, k), (jv, v) = inputs(1, 1, 256, 2, 2, 64, "float32")
+    got = ops.flash_attention(q, k, v, causal=False)
+    check(got, pallas_flash(jq, jk, jv, causal=False, interpret=True), "float32")
+    check(got, jref.flash_attention_ref(jq, jk, jv, causal=False), "float32")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_ragged_length(causal):
+    """S = 200 divides into no block: the port's kernel takes it, so its plain
+    version is held to attend_full."""
+    (jq, q), (jk, k), (jv, v) = inputs(2, 2, 200, 4, 2, 32, "float32")
+    check(fa.flash_attention(q, k, v, causal=causal),
+          JL.attend_full(jq, jk, jv, causal=causal), "float32")
+
+
+def test_cpu_tensors_run_the_plain_version_without_a_launch():
+    (_, q), (_, k), (_, v) = inputs(3, 1, 64, 2, 1, 32, "float32")
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, fa.flash_attention_plain(q, k, v, causal=True))
+    assert fa.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="no implementation"):
+        fa.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    with pytest.raises(ValueError, match="multiple of KV"):
+        fa.flash_attention_cuda(torch.zeros(1, 8, 3, 64), q, q)
+    with pytest.raises(ValueError, match=r"\(B,S,H,hd\)"):
+        fa.flash_attention_cuda(q[0], q, q)

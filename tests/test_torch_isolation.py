@@ -37,7 +37,8 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.launch.serve\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('repro', 'jaxlib'))\n"

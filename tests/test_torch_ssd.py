@@ -1,0 +1,162 @@
+"""K3 and the chunked SSD scan in the port, against the JAX package (CPU).
+
+* The plain intra-chunk block against ``ssd_intra_chunk(..., interpret=True)``
+  at atol/rtol 1e-4 (float32 products over Q <= 128 terms summed in another
+  order).
+* ``ssd_chunked`` against ``repro.models.mamba2.ssd_chunked``, the sequential
+  recurrence and the initial-state threading, on the cases of
+  ``tests/test_kernels.py`` (SSD scan), at 2e-3 as there.
+* A step ``dt·A`` large enough that ``exp`` overflows above the diagonal:
+  no NaN.
+The CUDA kernel is tested on a GPU by ``tests/test_torch_cuda.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.ssd_scan import ssd_intra_chunk  # noqa: E402
+from repro.models import mamba2 as JM  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models import mamba2 as M  # noqa: E402
+
+
+def inputs(seed, B, S, nh, hp, N, dt_scale=0.1, a_scale=0.3):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    x = rng.normal(size=(B, S, nh, hp)).astype(f)
+    dt = (np.log1p(np.exp(rng.normal(size=(B, S, nh)))) * dt_scale).astype(f)
+    A = (-np.exp(rng.normal(size=nh) * a_scale)).astype(f)
+    Bm = rng.normal(size=(B, S, N)).astype(f)
+    Cm = rng.normal(size=(B, S, N)).astype(f)
+    return x, dt, A, Bm, Cm
+
+
+def chunk(x, dt, A, Bm, Cm, Q):
+    """The intra-chunk block's inputs, as ssd_chunked forms them."""
+    B, S, nh, hp = x.shape
+    nc, N = S // Q, Bm.shape[-1]
+    seg = np.cumsum((dt * A).reshape(B, nc, Q, nh), axis=2, dtype=np.float32)
+    return (x.reshape(B, nc, Q, nh, hp), dt.reshape(B, nc, Q, nh), seg,
+            Bm.reshape(B, nc, Q, N), Cm.reshape(B, nc, Q, N))
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,nh,hp,N,Q", [
+    (2, 256, 2, 64, 16, 128),
+    (1, 256, 3, 24, 40, 64),
+    (1, 128, 1, 64, 128, 64),
+])
+def test_plain_intra_chunk_matches_pallas_interpret(B, S, nh, hp, N, Q):
+    args = chunk(*inputs(S + N, B, S, nh, hp, N), Q)
+    want = ssd_intra_chunk(*(jnp.asarray(a) for a in args), interpret=True)
+    got = ssd.ssd_intra_chunk(*(torch.from_numpy(a) for a in args))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        close(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("B,S,nh,hp,N,Q", [
+    (2, 256, 2, 64, 16, 128),
+    (1, 512, 4, 32, 64, 128),
+    (1, 128, 1, 64, 128, 64),
+])
+def test_ssd_chunked_matches_jax(B, S, nh, hp, N, Q):
+    x, dt, A, Bm, Cm = inputs(S + nh, B, S, nh, hp, N)
+    D = np.ones(nh, np.float32)
+    jy, js = JM.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm, D)), Q)
+    py, ps = ops.ssd(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)), Q)
+    close(py, jy, 2e-3)
+    close(ps, js, 2e-3)
+    ry, rs = ref.ssd_ref(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)), Q)
+    assert torch.equal(ry, py) and torch.equal(rs, ps)
+
+
+def test_ssd_bfloat16_rounds_y_inter_as_the_model_does():
+    """bf16 x: y_inter is rounded to bf16 before it is added (mamba2.py), and
+    the outputs come back in bf16; 2e-2 for bf16 rounding."""
+    x, dt, A, Bm, Cm = inputs(5, 1, 128, 2, 32, 16)
+    D = np.ones(2, np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jy, js = JM.ssd_chunked(jx, *(jnp.asarray(a) for a in (dt, A, Bm, Cm, D)), 32)
+    px = torch.from_numpy(np.asarray(jx, np.float32)).bfloat16()
+    py, ps = M.ssd_chunked(px, *(torch.from_numpy(a) for a in (dt, A, Bm, Cm, D)), 32)
+    assert py.dtype == ps.dtype == torch.bfloat16
+    close(py, jy, 2e-2)
+    close(ps, js, 2e-2)
+
+
+def test_ssd_equals_naive_sequential_recurrence():
+    B, S, nh, hp, N, Q = 1, 64, 2, 8, 4, 16
+    x, dt, A, Bm, Cm = inputs(3, B, S, nh, hp, N, dt_scale=0.2)
+    s = np.zeros((B, nh, hp, N), np.float32)
+    ys = []
+    for t in range(S):
+        dec = np.exp(dt[:, t] * A[None, :])
+        contrib = np.einsum("bn,bh,bhp->bhpn", Bm[:, t], dt[:, t], x[:, t])
+        s = s * dec[..., None, None] + contrib
+        ys.append(np.einsum("bn,bhpn->bhp", Cm[:, t], s))
+    D = np.zeros(nh, np.float32)
+    y, st = ops.ssd(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)), Q)
+    close(y, np.stack(ys, 1), 2e-3)
+    close(st, s, 2e-3)
+
+
+def test_ssd_initial_state_threading():
+    B, S, nh, hp, N, Q = 1, 128, 1, 16, 8, 32
+    x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in
+                        inputs(7, B, S, nh, hp, N, dt_scale=0.2))
+    D = torch.zeros(nh)
+    y_full, s_full = ops.ssd(x, dt, A, Bm, Cm, D, Q)
+    h = S // 2
+    y1, s1 = ops.ssd(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h], D, Q)
+    y2, s2 = ops.ssd(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:], D, Q,
+                     initial_state=s1)
+    close(torch.cat([y1, y2], 1), y_full.numpy(), 2e-3)
+    close(s2, s_full.numpy(), 2e-3)
+
+
+def test_large_decay_overflows_above_the_diagonal_without_nan():
+    """dt·A of -60 a step: exp(seg_i - seg_j) above the diagonal is exp(+60·k),
+    inf for k >= 2 in float32. The block selects it away; the result is
+    finite and equals the JAX model's."""
+    x, dt, A, Bm, Cm = inputs(9, 1, 64, 2, 8, 4)
+    dt = np.full_like(dt, 6.0)
+    A = np.full_like(A, -10.0)
+    args = chunk(x, dt, A, Bm, Cm, 32)
+    seg = args[2][0, 0, :, 0]
+    with np.errstate(over="ignore"):
+        assert np.isinf(np.exp(seg[0] - seg[-1]))      # i = 0 < j = Q-1
+    got = ssd.ssd_intra_chunk_plain(*(torch.from_numpy(a) for a in args))
+    assert all(torch.isfinite(g).all() for g in got)
+    D = np.ones(2, np.float32)
+    py, ps = ops.ssd(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, D)), 32)
+    jy, js = JM.ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm, D)), 32)
+    assert torch.isfinite(py).all() and torch.isfinite(ps).all()
+    close(py, jy, 2e-3)
+    close(ps, js, 2e-3)
+
+
+def test_cpu_tensors_run_the_plain_version_and_the_wrapper_checks():
+    args = [torch.from_numpy(a) for a in chunk(*inputs(11, 1, 64, 2, 8, 4), 32)]
+    before = ssd.launches
+    for g, w in zip(ssd.ssd_intra_chunk(*args), ssd.ssd_intra_chunk_plain(*args)):
+        assert torch.equal(g, w)
+    assert ssd.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_intra_chunk_cuda(*args)
+    with pytest.raises(ValueError, match="no implementation"):
+        ssd.ssd_intra_chunk(*(a.to("meta") for a in args))
+    with pytest.raises(ValueError, match=r"\(B,nc,Q,nh\)"):
+        ssd.ssd_intra_chunk_cuda(args[0], args[1][..., :1], *args[2:])
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in inputs(1, 1, 48, 1, 4, 4))
+        ops.ssd(x, dt, A, Bm, Cm, torch.ones(1), 32)
