@@ -32,9 +32,9 @@ def _is_shared(cfg, i: int) -> bool:
 # params
 # ---------------------------------------------------------------------------
 
-def init_params(cfg, generator: torch.Generator | int = 0, *, device=None):
+def init_params(cfg, generator: torch.Generator, *, device=None):
     """Parameters on ``device`` (default CUDA), drawn from ``generator``."""
-    g = M.generator_on(generator, device)
+    g = M.check_generator(generator, device)
     dt = cfg.pdtype()
     return {
         "embed": L.init_embed(g, cfg, dt),

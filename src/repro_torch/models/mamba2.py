@@ -48,21 +48,18 @@ def init_layer(generator, cfg, dt):
             "ln": L.ones(generator, (cfg.d_model,), dt)}
 
 
-def generator_on(generator, device) -> torch.Generator:
-    """A generator on ``device`` (default CUDA): ``generator`` itself, or a
-    new one seeded with it when it is an int."""
+def check_generator(generator: torch.Generator, device) -> torch.Generator:
+    """``generator``, once it is known to lie on ``device`` (default CUDA)."""
     device = default_device(device)
-    if isinstance(generator, int):
-        return torch.Generator(device).manual_seed(generator)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, parameters asked "
                          f"for on {device}")
     return generator
 
 
-def init_params(cfg, generator: torch.Generator | int = 0, *, device=None):
+def init_params(cfg, generator: torch.Generator, *, device=None):
     """Parameters on ``device`` (default CUDA), drawn from ``generator``."""
-    g = generator_on(generator, device)
+    g = check_generator(generator, device)
     dt = cfg.pdtype()
     return {"embed": L.init_embed(g, cfg, dt),
             "layers": L.stack_layers(cfg.n_layers,
