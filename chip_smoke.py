@@ -40,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -94,7 +95,27 @@ SMOKE_DECODE = 3
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 L2_BYTES = 50 * 2**20
+
+
+def resource_usage() -> dict:
+    """Registers and spilled bytes of each kernel instantiation built in this
+    run, from nvcc --resource-usage (none for a library already built)."""
+    usage: dict[str, str] = {}
+    kernel = None
+    for out in _build.compiler_output.values():
+        for line in out.splitlines():
+            if "Function properties for" in line:
+                m = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?_kernel)(I\w*?E)?E", line)
+                kernel = (m.group(1) + (m.group(2) or "")) if m else line.split()[-1]
+            elif kernel and "spill stores" in line:
+                usage[kernel] = ", ".join(x.strip() for x in line.split(",")[1:])
+            elif kernel and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line)
+                usage[kernel] = f"{regs.group(1) if regs else '?'} registers, " + usage.get(kernel, "")
+                kernel = None
+    return usage
 
 
 def device_line() -> str:
@@ -490,7 +511,12 @@ def check_k2(gen) -> dict:
              ((2, 200, 8, 4, 64), torch.float32, True),        # ragged S
              ((2, 200, 8, 4, 64), torch.bfloat16, True),
              ((1, 384, 4, 2, 32), torch.float32, False),       # non-causal
+             ((1, 384, 4, 2, 32), torch.bfloat16, False),
              ((2, 64, 4, 4, 16), torch.float32, True)]         # smoke heads
+    # edges of the tensor-core tiles: one row, and 130 rows (two full 64-row
+    # tiles and a ragged one), at every head dim but the main path's
+    cases += [((1, 1, 2, 2, hd), torch.bfloat16, True) for hd in (16, 32, 128)]
+    cases += [((1, 130, 8, 2, hd), torch.bfloat16, True) for hd in (16, 32, 128)]
     errors = {}
     for shape, dtype, causal in cases:
         q, k, v = attention_inputs(gen, *shape, dtype)
@@ -513,16 +539,23 @@ def hold_k3(got, args) -> list:
 
 def check_k3(gen) -> dict:
     """K3 against its plain version on the card at atol/rtol 1e-4."""
-    cases = [(2, 16, 128, 64, 64, 64),      # zamba2 prefill, B 2
-             (1, 4, 128, 48, 64, 128),      # mamba2-780m, N 128
-             (2, 8, 64, 64, 64, 64),        # Q 64
-             (1, 2, 128, 4, 128, 128)]      # hp = N = Q = 128
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((2, 16, 128, 64, 64, 64), bf16),      # zamba2 prefill, B 2
+             ((1, 4, 128, 48, 64, 128), bf16),      # mamba2-780m, N 128
+             ((2, 8, 64, 64, 64, 64), bf16),        # Q 64
+             ((1, 2, 128, 4, 128, 128), bf16),      # hp = N = Q = 128
+             ((1, 2, 128, 2, 128, 128), f32),       # the same, one x buffer
+             # edges of the 16 x 8 tensor-core tiles, and rows that are not
+             # a multiple of 16 bytes (loaded without cp.async)
+             ((1, 1, 33, 3, 12, 20), f32),
+             ((1, 1, 33, 3, 12, 20), bf16),
+             ((2, 1, 16, 16, 8, 4), bf16)]
     errors = {}
-    for shape in cases:
-        args = ssd_inputs(gen, *shape)
+    for shape, xdtype in cases:
+        args = ssd_inputs(gen, *shape, xdtype=xdtype)
         got = ssd.ssd_intra_chunk_cuda(*args)
         torch.cuda.synchronize()
-        errors[str(shape)] = hold_k3(got, args)
+        errors[f"{shape} x {str(xdtype)[6:]}"] = hold_k3(got, args)
     print(f"K3 vs plain on the card, max abs error (y, state, decay): "
           f"{json.dumps(errors)}")
     return errors
@@ -579,8 +612,10 @@ def check_small_hybrid(seed) -> float:
     return err
 
 
-def profile_device(fn) -> dict:
-    """Device busy and idle share and the top kernels over one call of fn."""
+def profile_device(fn, watch=()) -> dict:
+    """Device busy and idle share and the top kernels over one call of fn;
+    for each name in ``watch``, the device time and count of the kernels
+    whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -592,7 +627,12 @@ def profile_device(fn) -> dict:
     busy_us = sum(times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
     host = sorted(self_times_us(prof, on_device=False).items(), key=lambda kv: -kv[1])[:6]
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    watched = {w: {"ms": sum(e.self_device_time_total for e in on_device if w in e.key) / 1e3,
+                   "calls": sum(e.count for e in on_device if w in e.key)} for w in watch}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "watched": watched,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
             "device_launches": sum(e.count for e in prof.key_averages()
                                    if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -664,7 +704,9 @@ def serving_path(seed) -> dict:
         "decode_median_ms": 1e3 * float(np.median(step_s)),
         "decode_tokens_per_s": SERVE_BATCH * SERVE_DECODE / decode_s,
         "peak_mem_gib": peak, "launches": prefill_launches,
-        "profile": profile_device(lambda: prefill(params, {"tokens": tokens})),
+        "profile": profile_device(lambda: prefill(params, {"tokens": tokens}),
+                                  watch=("ssd_intra_chunk_kernel",
+                                         "flash_attention_bf16_kernel")),
         "decode_profile": profile_device(lambda: decode(
             params, cache, tok, torch.full((SERVE_BATCH,), cache_len - 1,
                                            dtype=torch.int64, device="cuda"))),
@@ -721,11 +763,18 @@ def time_k3(gen) -> dict:
     errs = hold_k3(got, args)                     # held at the main path's shape
     print(f"K3 vs plain at {[B, nc, Q_, nh, hp, N]}: {json.dumps(errs)}")
     tri = Q_ * (Q_ + 1) / 2
-    ops_ = B * nc * (2 * N * tri + nh * (2 * hp * tri + 2 * Q_ * hp * N))
+    cb_ops = B * nc * 2 * N * tri                       # C B^T, lower triangle
+    y_ops = B * nc * nh * 2 * hp * tri                  # M x, lower triangle
+    state_ops = B * nc * nh * 2 * Q_ * hp * N           # (x w)^T B
+    # as issued: TF32 tensor-core products, 3 for each float32 product of
+    # C B^T and the state, 2 for M x (x is bf16, exact in TF32)
+    tf32_s = (3 * cb_ops + 2 * y_ops + 3 * state_ops) / TF32_OPS_PER_S
+    f32_s = (cb_ops + y_ops + state_ops) / FP32_OPS_PER_S   # PR 12's CUDA-core figure
     moved = (B * nc * Q_ * nh * hp * (2 + 4) + 2 * B * nc * Q_ * nh * 4
              + 2 * B * nc * Q_ * N * 4 + B * nc * nh * hp * N * 4 + B * nc * nh * 4)
     return timing("ssd_scan", [B, nc, Q_, nh, hp, N], kernel, plain, None,
-                  ops_ / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S, max_abs_err=max(errs))
+                  tf32_s, moved / HBM_BYTES_PER_S, max_abs_err=max(errs),
+                  operations_fp32_cuda_cores_ms=1e3 * f32_s)
 
 
 def library_times(library) -> dict:
@@ -741,7 +790,7 @@ def library_times(library) -> dict:
 
 
 def timing(name, shape, kernel, plain, library, ops_s, bytes_s, **extra) -> dict:
-    kernel_ms = device_ms(kernel, 10)
+    kernel_ms = device_ms(kernel, 30)
     return {"name": name, "shape": shape,
             "kernel_ms": kernel_ms if kernel_ms is not None else event_ms(kernel, 10),
             "kernel_timed_by": "profiler" if kernel_ms is not None else "events",
@@ -767,6 +816,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
+    print(json.dumps({"resource_usage": resource_usage()}))
 
     check_k1(rng)
     check_small_slice(rng)

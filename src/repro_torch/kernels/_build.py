@@ -20,9 +20,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--resource-usage")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# What nvcc printed for each source built by this process: with
+# --resource-usage, each kernel's registers, spills and shared memory.
+compiler_output: dict[str, str] = {}
 
 
 def sources() -> list[str]:
@@ -72,6 +75,7 @@ def build(names: list[str] | None = None) -> dict[str, Path]:
     failures = []
     for name, path, tmp, proc in running:
         output, _ = proc.communicate()
+        compiler_output[name] = output
         if proc.returncode == 0:
             os.replace(tmp, path)
         else:

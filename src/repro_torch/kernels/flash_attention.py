@@ -8,7 +8,11 @@ Three functions compute it:
   * :func:`flash_attention_cuda` launches the hand-written CUDA kernel
     ``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/flash_attention.py`` (``flash_attention`` and its
-    ``_kernel``); that source says what bounds it and how it is designed;
+    ``_kernel``); that source says what bounds it and how it is designed.
+    The dtype selects the kernel: bfloat16 runs on the tensor cores
+    (``mma.sync`` bf16 products with float32 accumulators, P rounded to
+    bf16 for the P V product, K/V tiles in a ``cp.async`` ring), float32 on
+    CUDA cores in float32 throughout, as its 1e-4 contract asks;
   * :func:`flash_attention_plain` is the plain PyTorch version:
     :func:`attend_chunked` for S > ``ATTN_CHUNK`` that divides into chunks,
     else :func:`attend_full`, the choice ``repro.models.layers.attend``
@@ -99,8 +103,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device: q ``(B,S,H,hd)``, k and v ``(B,S,KV,hd)`` with ``H % KV == 0`` and
-    ``hd`` in ``HEAD_DIMS``; any S. Raises on anything else and when the
-    launch fails.
+    ``hd`` in ``HEAD_DIMS``; any S. bfloat16 launches the tensor-core
+    kernel, float32 the CUDA-core kernel. Raises on anything else and when
+    the launch fails.
     """
     global launches
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:

@@ -11,7 +11,9 @@ For the intra-chunk block three functions compute it:
   * :func:`ssd_intra_chunk_cuda` launches the hand-written CUDA kernel
     ``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/ssd_scan.py`` (``ssd_intra_chunk`` and its ``_kernel``);
-    that source says what bounds it and how it is designed;
+    that source says what bounds it and how it is designed. Its products
+    run on the TF32 tensor cores in the 3xTF32 split (each float32 operand
+    as the sum of two TF32 values), which keeps float32 accuracy;
   * :func:`ssd_intra_chunk_plain` is the plain PyTorch version, the
     intra-chunk terms of ``repro.models.mamba2.ssd_chunked``;
   * :func:`ssd_intra_chunk` picks by the inputs' device: a CUDA tensor
@@ -34,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
-HEADS_PER_BLOCK = 8      # heads that share one C Bᵀ in the kernel
+HEADS_PER_BLOCK = 32     # heads that share one C Bᵀ in the kernel
 
 # Kernel launches made by ssd_intra_chunk_cuda since the count was last reset.
 launches = 0
