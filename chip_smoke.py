@@ -10,7 +10,8 @@ Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
 Phases, each of which raises on failure so that the script exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the kernel build (one
-     nvcc per source, all started together);
+     nvcc per source, all started together), with each kernel's registers
+     and spills as one JSON line {"resource_usage": ...};
   2. K1 (quorum commit) against its plain version on the card, on ragged op
      counts, n from 1 to 1024, tied arrivals, rows without votes, with and
      without an explicit threshold; and the port's quorum slice at a small
@@ -20,8 +21,9 @@ Phases, each of which raises on failure so that the script exits non-zero:
      weights(r)[ids] -> core.quorum.quorum_commit -> observe; K1's launch
      count must rise by exactly one per step;
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
-     versions on the card, and the smoke zamba2 (float32) served on the card
-     against the same on the CPU;
+     versions on the card, ragged edges of their tensor-core tiles included,
+     and the smoke zamba2 (float32) served on the card against the same on
+     the CPU;
   5. the serving main path: zamba2-1.2b at full width and depth (bf16,
      random weights from --seed), 8 prompts of 2048 tokens, then 32 greedy
      decode steps; K3 must launch 38 times and K2 6 times in the prefill and
