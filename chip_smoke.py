@@ -13,13 +13,18 @@ Phases, each of which raises on failure so that the script exits non-zero:
      nvcc per source, all started together), with each kernel's registers
      and spills as one JSON line {"resource_usage": ...};
   2. K1 (quorum commit) against its plain version on the card, on ragged op
-     counts, n from 1 to 1024, tied arrivals, rows without votes, with and
-     without an explicit threshold; and the port's quorum slice at a small
-     size on the card against the same slice on the CPU;
+     counts, n from 1 to 1024 with every edge of the kernel's regimes, tied
+     arrivals, rows without votes, with and without an explicit threshold and
+     the members mask; then -0.0 beside +0.0 and NaN arrivals, on inputs that
+     start 16-byte aligned and on slices a[1:] that do not, against the plain
+     version on the CPU; and the port's quorum slice at a small size on the
+     card against the same slice on the CPU;
   3. the quorum main path: a WeightTracker over 4,194,304 objects x 9
      replicas (t_fail = 2) and 20 steps of 65,536 in-flight ops, each step
      weights(r)[ids] -> core.quorum.quorum_commit -> observe; K1's launch
-     count must rise by exactly one per step;
+     count must rise by exactly one per step; and the quorum call's host time
+     back to back, after the host slept and after a synchronise that waited
+     for the device, as long as a weights phase;
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
      versions on the card, ragged edges of their tensor-core tiles included,
      and the smoke zamba2 (float32) served on the card against the same on
@@ -78,11 +83,14 @@ STEPS = 20
 NON_VOTE = 0.10           # share of votes that never arrive
 TIMEOUT_MS = 50.0         # latency a non-vote feeds into the EMA
 
-COMPARE_N = (1, 2, 3, 5, 7, 9, 16, 33, 128, 1024)
+# n at each edge of K1's regimes: a thread a row up to 32, a bitonic network above
+COMPARE_N = (1, 2, 3, 5, 7, 9, 16, 17, 31, 32, 33, 64, 65, 128, 512, 1024)
+SIGNED_N = (1, 9, 16, 17, 32, 33, 1024)
+SIGNED_OPS = 1001
 COMPARE_OPS = (1, 127, 1000)
 NEAR_T_RTOL = 1e-6        # rows whose prefix sum comes this close to T are excluded
 WEIGHT_SUM_RTOL = 1e-6    # float32 sums taken in another order
-TIME_SHAPES = ((65_536, 9), (1024, 8), (8192, 8), (8192, 32), (65_536, 16))
+TIME_SHAPES = ((65_536, 9), (1024, 8), (8192, 8), (8192, 32), (65_536, 16), (1000, 1024))
 
 # Serving main path: zamba2-1.2b as configured (38 layers, d 2048, bf16),
 # 8 requests of 2048-token prompts, then 32 greedy decode steps.
@@ -231,8 +239,39 @@ def check_k1(rng) -> None:
             compare(f"ops.quorum_commit n={n} ops={ops_}", got + (None,),
                     qc.quorum_commit_plain(a, w)[:4] + (None,),
                     near_threshold(a, w, None))
-    print(f"K1 vs plain on the card: {rows} rows, {excluded} within "
-          f"{NEAR_T_RTOL} of T excluded, max relative error {max_rel!r}")
+            got = qc.quorum_commit_cuda(a, w)
+            torch.cuda.synchronize()
+            compare(f"K1 n={n} ops={ops_} without members", got,
+                    qc.quorum_commit_plain(a, w), near_threshold(a, w, None))
+    card_sort_agrees = True
+    for n in SIGNED_N:
+        a_np, w_np, thr_np = tie_inputs(rng, SIGNED_OPS + 1, n)
+        a_np[a_np == 0] = np.where(rng.random(int((a_np == 0).sum())) < 0.5, -0.0, 0.0)
+        a_np[rng.random(a_np.shape) < 0.05] = np.float32("nan")
+        a_np[rng.random(a_np.shape) < 0.02] = -np.float32("nan")
+        on_cpu = [torch.from_numpy(x) for x in (a_np, w_np, thr_np)]
+        on_card = [x.cuda() for x in on_cpu]
+        # offset 1: slices that start n floats into their storage on the card
+        for offset, with_threshold in ((0, False), (0, True), (1, False), (1, True)):
+            a, w, thr = (x[offset:offset + SIGNED_OPS] for x in on_card)
+            ac, wc, thrc = (x[offset:offset + SIGNED_OPS] for x in on_cpu)
+            th, thc = (thr, thrc) if with_threshold else (None, None)
+            what = f"K1 signed zeros, NaN, n={n} offset={offset} threshold={with_threshold}"
+            got = qc.quorum_commit_cuda(a, w, th, members=True)
+            torch.cuda.synchronize()
+            want = qc.quorum_commit_plain(ac, wc, thc, members=True)
+            near = near_threshold(ac, wc, thc)
+            max_rel = max(max_rel, compare(what, tuple(x.cpu() for x in got), want, near)[1])
+            rows += SIGNED_OPS
+            excluded += int(near.sum())
+            try:
+                compare(what, tuple(x.cpu() for x in qc.quorum_commit_plain(
+                    a, w, th, members=True)), want, near)
+            except AssertionError:
+                card_sort_agrees = False
+    print(f"K1 vs plain: {rows} rows, {excluded} within {NEAR_T_RTOL} of T "
+          f"excluded, max relative error {max_rel!r}; the plain version on the "
+          f"card agrees with the CPU's on signed zeros and NaN: {card_sort_agrees}")
 
 
 def run_slice(tracker, r, ids, arrivals, observed, on_step=lambda s, w, res: None):
@@ -303,9 +342,18 @@ def self_times_us(prof, on_device: bool) -> dict[str, float]:
     return out
 
 
+def top_ms(times: dict[str, float], count: int) -> dict[str, float]:
+    """The ``count`` largest of ``times`` (us) in ms, by name cut to 80
+    characters; a cut name that repeats carries its rank."""
+    out: dict[str, float] = {}
+    for rank, (k, v) in enumerate(sorted(times.items(), key=lambda kv: -kv[1])[:count]):
+        out[k[:80] if k[:80] not in out else f"{k[:74]} #{rank + 1}"] = v / 1e3
+    return out
+
+
 def profile_steps(tracker, r, ids, arrivals, observed) -> dict:
-    """Device busy and idle share and the top kernels over a few main-path
-    steps, from torch.profiler."""
+    """Device busy and idle share, the top kernels and K1's device time and
+    launches over a few main-path steps, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -314,12 +362,49 @@ def profile_steps(tracker, r, ids, arrivals, observed) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     times = self_times_us(prof, on_device=True)
     busy_us = sum(times.values())
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:6]
-    host = sorted(self_times_us(prof, on_device=False).items(), key=lambda kv: -kv[1])[:8]
+    k1 = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+          and "quorum_commit" in e.key]
     return {"steps": len(ids), "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
-            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
-            "top_host_ms": {k[:80]: v / 1e3 for k, v in host}}
+            "k1_ms": sum(e.self_device_time_total for e in k1) / 1e3,
+            "k1_launches": sum(e.count for e in k1),
+            "top_kernels_ms": top_ms(times, 6),
+            "top_host_ms": top_ms(self_times_us(prof, on_device=False), 8)}
+
+
+def quorum_host_probe(arrivals, w, wait_ms: float, reps: int = 20) -> dict:
+    """Median host ms of one core.quorum.quorum_commit call, synchronised
+    after each: back to back, after the host slept ``wait_ms``, and right
+    after a synchronise that waited ``wait_ms`` for the device."""
+    def device_wait_ms(cycles):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    cycles = int(1e6 * wait_ms / device_wait_ms(1_000_000))
+
+    def host_ms(before):
+        took = []
+        for _ in range(reps):
+            before()
+            t0 = time.perf_counter()
+            Q.quorum_commit(arrivals, w)
+            took.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        return 1e3 * float(np.median(took))
+
+    def device_wait():
+        torch.cuda._sleep(cycles)
+        torch.cuda.synchronize()
+
+    return {"wait_ms": wait_ms, "device_wait_ms": device_wait_ms(cycles),
+            "back_to_back_ms": host_ms(lambda: None),
+            "after_host_sleep_ms": host_ms(lambda: time.sleep(wait_ms / 1e3)),
+            "after_device_wait_ms": host_ms(device_wait)}
 
 
 def main_path(rng) -> dict:
@@ -380,6 +465,8 @@ def main_path(rng) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "profile": profile_steps(tracker, r, ids[:5], arrivals[:5], observed[:5]),
     }
+    summary["quorum_host_probe"] = quorum_host_probe(
+        arrivals[0], tracker.weights(r)[ids[0]], summary["weights_median_ms"])
     print(f"main path: {STEPS} steps x {OPS} ops over {NUM_OBJECTS} objects x "
           f"{N_REPLICAS} replicas: {summary['ops_per_s']:.0f} ops/s, "
           f"{summary['step_ms']:.3f} ms/step (weights {summary['weights_ms']:.3f}, "
@@ -627,8 +714,6 @@ def profile_device(fn, watch=()) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     times = self_times_us(prof, on_device=True)
     busy_us = sum(times.values())
-    top = sorted(times.items(), key=lambda kv: -kv[1])[:10]
-    host = sorted(self_times_us(prof, on_device=False).items(), key=lambda kv: -kv[1])[:6]
     on_device = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     watched = {w: {"ms": sum(e.self_device_time_total for e in on_device if w in e.key) / 1e3,
@@ -638,8 +723,8 @@ def profile_device(fn, watch=()) -> dict:
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
             "device_launches": sum(e.count for e in prof.key_averages()
                                    if e.device_type == torch.autograd.DeviceType.CUDA),
-            "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
-            "top_host_ms": {k[:80]: v / 1e3 for k, v in host}}
+            "top_kernels_ms": top_ms(times, 10),
+            "top_host_ms": top_ms(self_times_us(prof, on_device=False), 6)}
 
 
 def serving_path(seed) -> dict:

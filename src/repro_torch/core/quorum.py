@@ -54,15 +54,20 @@ def quorum_commit(arrivals: torch.Tensor, weights: torch.Tensor,
     if arrivals.ndim == 1:
         arrivals = arrivals[None]
         weights = weights[None]
-    arrivals = arrivals.to(torch.float32).contiguous()
-    weights = weights.to(torch.float32).contiguous()
+    arrivals, weights = _float32(arrivals), _float32(weights)
     if threshold is not None:
-        threshold = torch.broadcast_to(
-            threshold.to(torch.float32), arrivals.shape[:1]).contiguous()
+        threshold = _float32(torch.broadcast_to(threshold, arrivals.shape[:1]))
     commit_time, quorum_size, committed, weight_sum, members = \
         _qc.quorum_commit(arrivals, weights, threshold, members=True)
     return QuorumResult(committed, commit_time, quorum_size, weight_sum,
                         members)
+
+
+def _float32(x: torch.Tensor) -> torch.Tensor:
+    """x as contiguous float32, without a call where it already is one."""
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    return x if x.is_contiguous() else x.contiguous()
 
 
 def quorums_intersect(members_a: torch.Tensor, members_b: torch.Tensor

@@ -22,6 +22,7 @@ non-negative, as the protocol gives them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -105,40 +106,48 @@ def quorum_commit_cuda(arrivals: torch.Tensor, weights: torch.Tensor,
 
     Takes contiguous float32 CUDA tensors, arrivals and weights ``(ops, n)``
     with ``1 <= n <= MAX_REPLICAS`` and an optional threshold ``(ops,)``, all
-    on one device; raises on anything else and when the launch fails.
+    on one device; raises on anything else and when the launch fails. The
+    outputs are views of one allocation.
     """
     global launches
     _check_shapes(arrivals, weights, threshold)
-    tensors = [arrivals, weights] + ([threshold] if threshold is not None else [])
-    device = arrivals.device
-    if device.type != "cuda" or any(x.device != device for x in tensors):
-        raise ValueError("quorum_commit_cuda: inputs must lie on one CUDA "
-                         f"device; got {[str(x.device) for x in tensors]}")
-    if any(x.dtype != torch.float32 for x in tensors):
+    # written out rather than as loops over the tensors: this runs every call
+    t = arrivals if threshold is None else threshold
+    device, f32 = arrivals.device, torch.float32
+    if device.type != "cuda" or weights.device != device or t.device != device:
+        raise ValueError("quorum_commit_cuda: inputs must lie on one CUDA device; "
+                         f"got {arrivals.device}, {weights.device}, {t.device}")
+    if arrivals.dtype != f32 or weights.dtype != f32 or t.dtype != f32:
         raise TypeError("quorum_commit_cuda: inputs must be float32; got "
-                        f"{[x.dtype for x in tensors]}")
-    if not all(x.is_contiguous() for x in tensors):
+                        f"{arrivals.dtype}, {weights.dtype}, {t.dtype}")
+    if not (arrivals.is_contiguous() and weights.is_contiguous() and t.is_contiguous()):
         raise ValueError("quorum_commit_cuda: inputs must be contiguous")
     ops, n = arrivals.shape
     if n > MAX_REPLICAS:
         raise ValueError(f"quorum_commit_cuda: n={n} replicas; the kernel "
                          f"supports at most {MAX_REPLICAS}")
 
-    commit_time = torch.empty(ops, dtype=torch.float32, device=device)
-    quorum_size = torch.empty(ops, dtype=torch.int32, device=device)
-    committed = torch.empty(ops, dtype=torch.bool, device=device)
-    weight_sum = torch.empty(ops, dtype=torch.float32, device=device)
-    mask = torch.empty((ops, n), dtype=torch.bool, device=device) if members else None
+    # one allocation: commit_time, weight_sum, quorum_size (4 bytes a row),
+    # committed (1) and the members mask (n)
+    out = torch.empty(13 * ops + (ops * n if members else 0), dtype=torch.bool,
+                      device=device)
+    parts = out.split_with_sizes((4 * ops, 4 * ops, 4 * ops, ops, ops * n if members else 0))
+    commit_time = parts[0].view(f32)
+    weight_sum = parts[1].view(f32)
+    quorum_size = parts[2].view(torch.int32)
+    committed = parts[3]
+    mask = parts[4].view(ops, n) if members else None
     if ops == 0:
         return commit_time, quorum_size, committed, weight_sum, mask
-    with torch.cuda.device(device):
+    index = device.index
+    other = index != torch.cuda.current_device()
+    with torch.cuda.device(index) if other else contextlib.nullcontext():
         err = _launcher()(
             arrivals.data_ptr(), weights.data_ptr(),
             None if threshold is None else threshold.data_ptr(), ops, n,
-            commit_time.data_ptr(), quorum_size.data_ptr(),
-            committed.data_ptr(), weight_sum.data_ptr(),
-            None if mask is None else mask.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+            commit_time.data_ptr(), quorum_size.data_ptr(), committed.data_ptr(),
+            weight_sum.data_ptr(), None if mask is None else mask.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"quorum_commit_cuda: kernel launch failed with "
                            f"CUDA error {err}")

@@ -8,8 +8,12 @@ JAX, so it runs on a GPU machine that has only PyTorch:
 
 Exact on ``committed``, ``commit_time``, ``quorum_size`` and ``members``;
 ``weight_sum`` at rtol 1e-6 (the plain version's prefix sum is a float32
-scan in another order). Inputs have tied arrivals, non-votes and rows with
-no vote; weights are drawn so that no prefix sum lies near the threshold.
+scan in another order). Inputs have tied arrivals, -0.0 beside +0.0, NaN
+arrivals, non-votes and rows with no vote; weights are drawn so that no
+prefix sum lies near the threshold. K1's cases cover n at each edge of the
+kernel's regimes (lanes a row for n <= 32, a bitonic network above), op
+counts that are not a multiple of a block's rows, and inputs that start off
+16-byte alignment (a slice ``a[1:]``).
 """
 
 import pytest
@@ -32,6 +36,8 @@ def cuda():
 
 def tie_inputs(rng, ops_, n, device):
     a = rng.integers(0, 4, (ops_, n)).astype(np.float32)
+    a[a == 0] = np.where(rng.random(int((a == 0).sum())) < 0.5, -0.0, 0.0)
+    a[rng.random((ops_, n)) < 0.05] = np.float32("nan")
     a[rng.random((ops_, n)) < 0.3] = np.inf
     a[::17] = np.inf
     # integer weights: every prefix sum and threshold is exact in float32
@@ -49,17 +55,29 @@ def assert_equal_results(got, want):
             assert torch.equal(g, e), i
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 9, 33, 128, 1024])
+@pytest.mark.parametrize("n", [1, 2, 3, 9, 16, 17, 31, 32, 33, 64, 65, 128, 512, 1024])
+@pytest.mark.parametrize("ops_", [300, 2053])
 @pytest.mark.parametrize("with_threshold", [False, True])
-def test_kernel_matches_plain(cuda, n, with_threshold):
+@pytest.mark.parametrize("members", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_kernel_matches_plain(cuda, n, ops_, with_threshold, members, offset):
     rng = np.random.default_rng(n)
-    a, w, thr = tie_inputs(rng, 300, n, cuda)
+    a, w, thr = tie_inputs(rng, ops_ + offset, n, cuda)
+    # offset 1: contiguous slices that start n floats into their storage
+    a, w, thr = a[offset:], w[offset:], thr[offset:]
     th = thr if with_threshold else None
     before = qc.launches
-    got = qc.quorum_commit_cuda(a, w, th, members=True)
+    got = qc.quorum_commit_cuda(a, w, th, members=members)
     torch.cuda.synchronize()
     assert qc.launches == before + 1
-    assert_equal_results(got, qc.quorum_commit_plain(a, w, th, members=True))
+    # the plain version on the CPU: its stable sort ties -0.0 with +0.0, as
+    # jnp.argsort does
+    want = qc.quorum_commit_plain(a.cpu(), w.cpu(), None if th is None else th.cpu(),
+                                  members=members)
+    assert (got[4] is None) == (not members)
+    if not members:
+        got, want = got[:4], want[:4]
+    assert_equal_results(tuple(x.cpu() for x in got), want)
 
 
 def test_entry_points_launch_the_kernel(cuda):
@@ -69,10 +87,11 @@ def test_entry_points_launch_the_kernel(cuda):
     got = ops.quorum_commit(a, w)
     torch.cuda.synchronize()
     assert qc.launches == before + 2
-    want = qc.quorum_commit_plain(a, w, members=True)
-    assert_equal_results((res.commit_time, res.quorum_size, res.committed,
-                          res.weight_sum, res.members), want)
-    assert_equal_results(got, want[:4])
+    want = qc.quorum_commit_plain(a.cpu(), w.cpu(), members=True)
+    assert_equal_results(tuple(x.cpu() for x in (
+        res.commit_time, res.quorum_size, res.committed, res.weight_sum,
+        res.members)), want)
+    assert_equal_results(tuple(x.cpu() for x in got), want[:4])
     empty = qc.quorum_commit_cuda(a[:0], w[:0], members=True)
     assert empty[4].shape == (0, 9) and qc.launches == before + 2
 

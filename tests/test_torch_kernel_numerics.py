@@ -176,3 +176,192 @@ def test_k2_bf16_p_holds_the_row_limit(B, S, H, KV, hd):
     assert got <= 2 * plain, (got, plain)
     # bf16 P costs about one rounding of the output (2^-8), no more
     assert got < 4 * 2.0 ** -8, got
+
+
+# ---------------------------------------------------------------------------
+# K1 (quorum commit): the order by keys and the double scans in tree order
+# ---------------------------------------------------------------------------
+#
+# K1 orders a row's votes by keys (order bits of t, replica index), where the
+# order bits map float32 monotonically to uint32 after -0.0 becomes +0.0 and
+# every NaN one NaN. For n <= 32 one thread takes a row: a vote's position is
+# its rank among the keys, the default threshold and the prefix sums are
+# sequential double sums (replica order, then stable arrival order). For
+# n > 32 a bitonic network sorts the keys (the order is the keys' order, how it
+# is reached does not matter), each thread of P/2 = next_pow2(n)/2 adds the
+# two positions it holds, a Hillis-Steele scan runs in each warp of 32 and the
+# warp totals are added in order; the threshold is a butterfly sum over each
+# warp of the thread's two replicas, then the warp totals in order. Emulated
+# here in plain torch, step for step, the kernel's outputs equal
+# quorum_commit_plain's: exact on commit_time, quorum_size, committed and
+# members, weight_sum at rtol 1e-6, outside the rows whose prefix comes within
+# 1e-6 of T (chip_smoke.compare's contract).
+
+from repro_torch.kernels import quorum_commit as qc  # noqa: E402
+
+K1_RTOL = 1e-6
+K1_NS = [1, 9, 16, 17, 32, 33, 1024]
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def k1_keys(t: torch.Tensor, canonical: bool = True) -> torch.Tensor:
+    """int64 keys whose order is the kernel's: order bits, then index."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if canonical:
+        bits = torch.where(torch.isnan(t), 0x7FC00000, bits)
+        bits = torch.where(t == 0, 0, bits)
+    neg = (bits & 0x80000000) != 0
+    order = torch.where(neg, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    return order * 2048 + torch.arange(t.shape[1])
+
+
+def hillis_steele(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Inclusive scan over groups of ``width`` lanes, lane p adding lane
+    p - o's value to its own at o = 1, 2, 4, ... (``__shfl_up_sync``)."""
+    x = x.reshape(x.shape[0], -1, width)
+    o = 1
+    while o < width:
+        y = x.clone()
+        y[..., o:] = x[..., o:] + x[..., :-o]
+        x, o = y, 2 * o
+    return x.reshape(x.shape[0], -1)
+
+
+def butterfly(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Sum over groups of ``width`` lanes by ``__shfl_xor_sync``; every lane
+    ends with the same value, lane 0's is returned per group."""
+    idx = torch.arange(width)
+    x = x.reshape(x.shape[0], -1, width)
+    o = width // 2
+    while o > 0:
+        x = x + x[..., idx ^ o]
+        o //= 2
+    return x[..., 0]
+
+
+def k1_emulated(t, w, threshold=None, canonical=True):
+    """K1's outputs as the kernel computes them (see above)."""
+    rows, n = t.shape
+    key = k1_keys(t, canonical)
+    rank = (key[:, None, :] < key[:, :, None]).sum(-1)      # rank of replica j
+    vote = torch.isfinite(t)
+    wv = torch.where(vote, w, 0.0)
+    if n <= 32:
+        total = torch.zeros(rows, dtype=torch.float64)
+        for j in range(n):
+            total = total + w[:, j].double()
+        pos_w = torch.zeros(rows, n, dtype=torch.float64).scatter(1, rank, wv.double())
+        pos_t = torch.zeros(rows, n).scatter(1, rank, t)
+        prefix = torch.cumsum(pos_w, -1).float()     # sequential, as the thread adds
+    else:
+        P = next_pow2(n)
+        order = torch.argsort(key, dim=-1)
+        pos_t = torch.gather(t, 1, order)
+        v = torch.zeros(rows, P, dtype=torch.float64)
+        v[:, :n] = torch.gather(wv, 1, order).double()
+        v0, v1 = v[:, 0::2], v[:, 1::2]
+        pair = v0 + v1
+        incl = hillis_steele(pair, 32).reshape(rows, -1, 32)
+        excl = torch.cat([torch.zeros(rows, incl.shape[1], 1, dtype=torch.float64),
+                          incl[..., :-1]], -1)
+        offset = torch.zeros(rows, incl.shape[1], dtype=torch.float64)
+        for warp in range(1, incl.shape[1]):
+            offset[:, warp] = offset[:, warp - 1] + incl[:, warp - 1, -1]
+        base = (offset[..., None] + excl).reshape(rows, -1)
+        prefix = torch.stack([base + v0, base + pair], -1).reshape(rows, P)[:, :n].float()
+        wpad = torch.zeros(rows, P, dtype=torch.float64)
+        wpad[:, :n] = w.double()
+        mine = 0.0 + wpad[:, 0::2] + wpad[:, 1::2]             # replicas 2i, 2i + 1
+        warp_totals = butterfly(mine, 32)
+        total = torch.zeros(rows, dtype=torch.float64)
+        for warp in range(warp_totals.shape[1]):
+            total = total + warp_totals[:, warp]
+    T = total.float() / 2.0 if threshold is None else threshold
+    crossed = prefix > T[:, None]
+    commit = torch.any(crossed & torch.isfinite(pos_t), -1)
+    k = torch.argmax(crossed.to(torch.uint8), -1, keepdim=True)
+    commit_time = torch.where(commit, torch.gather(pos_t, 1, k)[:, 0], float("inf"))
+    quorum_size = torch.where(commit, k[:, 0] + 1, 0).to(torch.int32)
+    weight_sum = torch.where(commit, torch.gather(prefix, 1, k)[:, 0], 0.0)
+    members = commit[:, None] & vote & (rank <= k)
+    return commit_time, quorum_size, commit, weight_sum, members
+
+
+def k1_inputs(seed, rows, n):
+    """Heavy ties on an integer grid, -0.0 beside +0.0, NaN of either sign,
+    30% +inf non-votes and rows with no vote; weights in [0.1, 8)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 4, (rows, n)).astype(np.float32)
+    a[a == 0] = np.where(rng.random(int((a == 0).sum())) < 0.5, -0.0, 0.0)
+    a[rng.random((rows, n)) < 0.05] = np.float32("nan")
+    a[rng.random((rows, n)) < 0.03] = -np.float32("nan")
+    a[rng.random((rows, n)) < 0.3] = np.inf
+    a[rng.random(rows) < 0.05] = np.inf
+    w = rng.uniform(0.1, 8.0, (rows, n)).astype(np.float32)
+    thr = (w.astype(np.float64).sum(-1) * rng.uniform(0.3, 0.7, rows)).astype(np.float32)
+    return torch.from_numpy(a), torch.from_numpy(w), torch.from_numpy(thr)
+
+
+def k1_near(t, w, threshold):
+    """chip_smoke.near_threshold: rows whose float64 prefix, in stable order,
+    lies within K1_RTOL of T."""
+    order = torch.sort(t, dim=-1, stable=True)[1]
+    t_s = torch.gather(t, 1, order).double()
+    csum = torch.cumsum(torch.where(torch.isfinite(t_s),
+                                    torch.gather(w, 1, order).double(), 0.0), -1)
+    T = w.double().sum(-1) / 2 if threshold is None else threshold.double()
+    return torch.any((csum - T[:, None]).abs() <= K1_RTOL * T.abs()[:, None], -1)
+
+
+def k1_compare(got, want, near):
+    """Names of the outputs that differ outside the near-threshold rows."""
+    keep = ~near
+    names = ("commit_time", "quorum_size", "committed", "weight_sum", "members")
+    bad = []
+    for name, g, e in zip(names, got, want):
+        g, e = g[keep], e[keep]
+        same = (torch.allclose(g, e, rtol=K1_RTOL, atol=0.0) if name == "weight_sum"
+                else torch.equal(g, e))
+        if not same:
+            bad.append(name)
+    return bad
+
+
+@pytest.mark.parametrize("with_threshold", [False, True])
+@pytest.mark.parametrize("n", K1_NS)
+def test_k1_key_order_and_tree_scans_equal_plain(n, with_threshold):
+    t, w, thr = k1_inputs(n, 64 if n > 32 else 600, n)
+    th = thr if with_threshold else None
+    near = k1_near(t, w, th)
+    assert near.float().mean() < 0.05             # the comparison is not vacuous
+    want = qc.quorum_commit_plain(t, w, th, members=True)
+    assert k1_compare(k1_emulated(t, w, th), want, near) == []
+    if n > 1:
+        # the order really is the stable one: ranks equal the plain argsort's
+        rank = (k1_keys(t)[:, None, :] < k1_keys(t)[:, :, None]).sum(-1)
+        assert torch.equal(rank, torch.argsort(torch.sort(t, dim=-1, stable=True)[1], dim=-1))
+
+
+def test_k1_raw_bit_keys_break_the_tie_rule():
+    # +0.0 at replica 0 and -0.0 at replica 1 tie, so replica 0 comes first:
+    # 1 (not > 2.5), then 4 -> quorum of 2. A raw bit map puts -0.0 first:
+    # 3 > 2.5 -> quorum of 1.
+    t = torch.tensor([[0.0, -0.0, 1.0]])
+    w = torch.tensor([[1.0, 3.0, 1.0]])
+    want = qc.quorum_commit_plain(t, w, members=True)
+    assert want[1].item() == 2
+    assert k1_compare(k1_emulated(t, w), want, torch.zeros(1, dtype=torch.bool)) == []
+    assert "quorum_size" in k1_compare(k1_emulated(t, w, canonical=False), want,
+                                       torch.zeros(1, dtype=torch.bool))
+    # and on the random inputs: -0.0 and -NaN move without canonicalisation
+    for n in (9, 33):
+        t, w, _ = k1_inputs(n, 600, n)
+        want = qc.quorum_commit_plain(t, w, members=True)
+        bad = k1_compare(k1_emulated(t, w, canonical=False), want, k1_near(t, w, None))
+        assert "quorum_size" in bad, bad
