@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
-drives the weighted-quorum data plane and zamba2-1.2b serving at full size,
-and times them.
+drives the weighted-quorum data plane, zamba2-1.2b serving, qwen3-1.7b
+serving and qwen3-1.7b training at full size, and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
@@ -34,12 +34,25 @@ Phases, each of which raises on failure so that the script exits non-zero:
      decode steps; K3 must launch 38 times and K2 6 times in the prefill and
      neither in decode; time to first token, prefill and decode rates, peak
      memory, and a profiled prefill;
-  6. kernel times beside the plain version's, the bound and the library's,
+  6. K2's backward against the plain version's autograd gradient on the
+     card (the training shape, every head dim, GQA and ratio 1, ragged and
+     non-causal, float32 and bf16), K2's log-sum-exp output, and
+     ``layers.attend`` on the card differentiable through it;
+  7. the smoke qwen3-1.7b (float32) on the card against the CPU: prefill and
+     3 decode steps, 2 train steps (2 microbatches, remat), and a checkpoint
+     saved from the card and restored bit for bit;
+  8. the dense serving path, as in 5 for qwen3-1.7b at full width and
+     depth: K2 must launch 28 times in the prefill and not in decode;
+  9. the training path: qwen3-1.7b at full width and depth, 5 steps of 8 x
+     2048 tokens from the port's data pipeline through
+     ``launch.train.make_train_step`` (2 microbatches, remat, float32
+     moments); K2's backward must launch 56 times a step;
+ 10. kernel times beside the plain version's, the bound and the library's,
      as one JSON line {"kernels": [...]}: the kernel's device time
      (torch.profiler), the time per call through the wrapper and of the plain
      version (CUDA events over back-to-back calls, so host overhead
      included);
-  7. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+ 11. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -61,6 +75,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import manager as ckpt  # noqa: E402
 from repro_torch.core import quorum as Q  # noqa: E402
 from repro_torch.core import weights as W  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -68,9 +83,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quorum_commit as qc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.data import DataConfig, host_batch  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 # Main path: the largest cluster of benchmarks/bench_server_scaling.py
 # (9 replicas, t_fail = 2) and the largest batch of
@@ -101,6 +119,15 @@ SERVE_DECODE = 32
 SMOKE_PROMPT = 64         # the small hybrid slice, card against CPU
 SMOKE_DECODE = 3
 
+# Dense paths: qwen3-1.7b as configured (28 layers, d 2048, bf16). Serving
+# takes the zamba2 traffic; training takes 5 steps of 8 x 2048 tokens.
+DENSE_ARCH = "qwen3-1.7b"
+TRAIN_BATCH = 8
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 5
+TRAIN_TOTAL_STEPS = 10_000          # the schedule's length (the JAX default)
+SMALL_TRAIN_STEPS = (200, 201)      # full learning rate in a 300-step schedule
+K2_TRAIN_SHAPE = (4, 2048, 16, 8, 128)   # one microbatch of qwen3-1.7b
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -701,10 +728,24 @@ def check_small_hybrid(seed) -> float:
     return err
 
 
+# kernel name fragments -> the kind of work profile_device sums them under
+KERNEL_KINDS = (("k2_backward", ("attn_bwd_",)), ("k2", ("flash_attention_",)),
+                ("k3", ("ssd_intra_chunk",)), ("k1", ("quorum_commit",)),
+                ("cublas", ("nvjet", "gemm", "gemv", "cutlass", "splitKreduce")))
+
+
+def kernel_kind(name: str) -> str:
+    for kind, fragments in KERNEL_KINDS:
+        if any(f in name for f in fragments):
+            return kind
+    return "plain"     # PyTorch's own elementwise, reduction and copy kernels
+
+
 def profile_device(fn, watch=()) -> dict:
     """Device busy and idle share and the top kernels over one call of fn;
-    for each name in ``watch``, the device time and count of the kernels
-    whose names hold it."""
+    the device time by kind of kernel (the port's kernels, cuBLAS, and
+    PyTorch's plain kernels); for each name in ``watch``, the device time
+    and count of the kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -718,8 +759,11 @@ def profile_device(fn, watch=()) -> dict:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     watched = {w: {"ms": sum(e.self_device_time_total for e in on_device if w in e.key) / 1e3,
                    "calls": sum(e.count for e in on_device if w in e.key)} for w in watch}
+    by_kind: dict[str, float] = {}
+    for name, us in times.items():
+        by_kind[kernel_kind(name)] = by_kind.get(kernel_kind(name), 0.0) + us / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-            "watched": watched,
+            "watched": watched, "device_ms_by_kind": by_kind,
             "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
             "device_launches": sum(e.count for e in prof.key_averages()
                                    if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -727,11 +771,23 @@ def profile_device(fn, watch=()) -> dict:
             "top_host_ms": top_ms(self_times_us(prof, on_device=False), 6)}
 
 
-def serving_path(seed) -> dict:
-    """zamba2-1.2b at full width and depth: 8 x 2048-token prompts, then
-    SERVE_DECODE greedy decode steps, through the serving entry points."""
-    cfg = configs.get(SERVE_ARCH)
+def launch_counts() -> dict:
+    return {"quorum_commit": qc.launches, "flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches, "ssd_scan": ssd.launches}
+
+
+def reset_launch_counts() -> None:
+    qc.launches = fa.launches = fa.bwd_launches = ssd.launches = 0
+
+
+def serving_path(arch, seed, name) -> dict:
+    """``arch`` at full width and depth: 8 x 2048-token prompts, then
+    SERVE_DECODE greedy decode steps, through the serving entry points.
+    The prefill must launch K3 once a Mamba layer and K2 once an attention
+    (zamba2: 38 and 6; qwen3: 0 and 28), decode neither."""
+    cfg = configs.get(arch)
     fam = family(cfg)
+    hybrid = cfg.family == "hybrid"
     cache_len = SERVE_PROMPT + SERVE_DECODE
     t0 = time.perf_counter()
     params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
@@ -745,16 +801,16 @@ def serving_path(seed) -> dict:
     prefill(params, {"tokens": tokens})          # warm-up: cuBLAS plans, allocator
     torch.cuda.synchronize()
 
-    qc.launches = fa.launches = ssd.launches = 0
+    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     ttft_s = time.perf_counter() - t0
-    prefill_launches = {"quorum_commit": qc.launches,
-                        "flash_attention": fa.launches, "ssd_scan": ssd.launches}
-    want = {"quorum_commit": 0, "flash_attention": fam.n_shared(cfg),
-            "ssd_scan": cfg.n_layers}
+    prefill_launches = launch_counts()
+    want = {"quorum_commit": 0, "flash_attention_bwd": 0,
+            "flash_attention": fam.n_shared(cfg) if hybrid else cfg.n_layers,
+            "ssd_scan": cfg.n_layers if hybrid else 0}
     if prefill_launches != want:
         raise AssertionError(f"prefill launched {prefill_launches}, expected {want}")
     if logits.shape != (SERVE_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
@@ -771,13 +827,13 @@ def serving_path(seed) -> dict:
         step_s.append(time.perf_counter() - t0)
         if not torch.isfinite(logits).all():
             raise AssertionError(f"decode step {i}: logits not finite")
-    after = {"quorum_commit": qc.launches, "flash_attention": fa.launches,
-             "ssd_scan": ssd.launches}
+    after = launch_counts()
     if after != prefill_launches:
         raise AssertionError(f"decode launched kernels: {after} after {prefill_launches}")
     if not all(torch.isfinite(t).all() for t in cache.values()):
         raise AssertionError("decode cache not finite")
-    if cache["shared_k"][:, :, :cache_len].abs().amax(dim=(1, 3, 4)).min() == 0:
+    if cache["shared_k" if hybrid else "k"][:, :, :cache_len].abs().amax(
+            dim=(1, 3, 4)).min() == 0:
         raise AssertionError("a KV cache position was never written")
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode_s = sum(step_s)
@@ -802,7 +858,292 @@ def serving_path(seed) -> dict:
           f"time to first token {ttft_s:.3f} s ({summary['prefill_tokens_per_s']:.0f} "
           f"tokens/s), decode {summary['decode_ms_per_step']:.2f} ms/step "
           f"({summary['decode_tokens_per_s']:.1f} tokens/s), peak {peak:.2f} GiB")
-    print(json.dumps({"serving_path": summary}))
+    print(json.dumps({name: summary}))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# K2's backward and the dense paths (qwen3-1.7b)
+# ---------------------------------------------------------------------------
+
+
+def plain_grads(q, k, v, do, causal):
+    """(dq, dk, dv): the autograd gradient of K2's plain version."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_plain(*leaves, causal=causal)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def plain_lse(q, k, causal):
+    """Each row's float32 log-sum-exp of the scaled, masked logits, (B,H,S)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float().reshape(B, S, KV, H // KV, hd),
+                          k.float()) * hd ** -0.5
+    if causal:
+        keep = torch.arange(S, device=q.device)[:, None] >= torch.arange(S, device=q.device)
+        logits = torch.where(keep, logits, -1e30)
+    return torch.logsumexp(logits, -1).reshape(B, H, S)
+
+
+def grad_row_err(got, ref, scale) -> float:
+    """:func:`row_err` for a gradient: a row's largest error over its own
+    largest magnitude, or over 1e-3 of ``scale`` (the largest magnitude of
+    dq, dk and dv) where that is larger; at S = 1 the softmax has one entry
+    and dq and dk are exactly zero."""
+    ref = ref.double()
+    diff = (got.double() - ref).abs().amax(-1)
+    return float((diff / ref.abs().amax(-1).clamp_min(scale * 1e-3)).max())
+
+
+def hold_k2_backward(got, q, k, v, do, causal) -> dict:
+    """K2's backward held against the plain version's autograd gradient on
+    the same inputs. float32 at atol/rtol 1e-4, the forward's contract.
+    bfloat16 row by row against the plain gradient run in float32 on the
+    same bf16 inputs: each gradient's largest row error may be at most twice
+    the bf16 plain gradient's, or one bf16 ulp (2^-8, the output's own
+    rounding) where that is larger, as at S = 1, where the plain version
+    computes the zero dq and dk exactly. Returns the errors."""
+    want = plain_grads(q, k, v, do, causal)
+    errors = {}
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"K2 backward {name}: {g.dtype}{tuple(g.shape)} "
+                                 f"vs {w.dtype}{tuple(w.shape)}, or not finite")
+        errors[f"{name}_max_abs_err"] = max_err(g, w)
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"K2 backward {name}: {m}")
+    if q.dtype == torch.bfloat16:
+        ref = plain_grads(q.float(), k.float(), v.float(), do.float(), causal)
+        scale = max(float(r.abs().max()) for r in ref)
+        for g, w, r, name in zip(got, want, ref, ("dq", "dk", "dv")):
+            errors[f"{name}_row_rel_err"] = grad_row_err(g, r, scale)
+            errors[f"{name}_plain_row_rel_err"] = grad_row_err(w, r, scale)
+            if not errors[f"{name}_row_rel_err"] <= max(
+                    2 * errors[f"{name}_plain_row_rel_err"], 2.0 ** -8):
+                raise AssertionError(f"K2 backward {name} in bf16 is farther from "
+                                     f"float32, row by row, than twice the plain "
+                                     f"gradient: {errors}")
+    return errors
+
+
+def check_k2_backward(gen) -> dict:
+    """K2's log-sum-exp and backward kernel against the plain version on the
+    card, and ``layers.attend`` differentiable through them."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(K2_TRAIN_SHAPE, bf16, True),                 # qwen3-1.7b training
+             ((1, 512, 16, 8, 128), f32, True)]
+    cases += [((1, 256, 4, 2, hd), dt, True) for hd in (16, 32, 64, 128) for dt in (f32, bf16)]
+    cases += [((2, 200, 4, 4, 64), dt, True) for dt in (f32, bf16)]     # ratio 1, ragged
+    cases += [((1, 130, 8, 2, 32), dt, True) for dt in (f32, bf16)]     # GQA, ragged
+    cases += [((2, 1, 2, 2, 128), dt, True) for dt in (f32, bf16)]      # one row
+    cases += [((1, 384, 4, 2, 64), dt, False) for dt in (f32, bf16)]    # non-causal
+    cases += [((2, 200, 6, 2, 16), dt, False) for dt in (f32, bf16)]    # ragged non-causal
+    errors = {}
+    for shape, dtype, causal in cases:
+        q, k, v = attention_inputs(gen, *shape, dtype)
+        do = attention_inputs(gen, *shape, dtype)[0]
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        if not torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal)):
+            raise AssertionError(f"K2 {shape}: the output moved with the lse buffer")
+        lse_err = max_err(lse, plain_lse(q, k, causal))
+        if lse_err > (1e-5 if dtype == f32 else 4e-3):
+            raise AssertionError(f"K2 {shape} {dtype}: lse error {lse_err}")
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+        torch.cuda.synchronize()
+        errors[f"{shape} {str(dtype)[6:]} causal={causal}"] = {
+            "lse_max_abs_err": lse_err, **hold_k2_backward(got, q, k, v, do, causal)}
+
+    # layers.attend on the card: a graph through K2, nonzero projection grads
+    cfg = configs.smoke(DENSE_ARCH)
+    params = {name: t.requires_grad_() for name, t in
+              L.init_attention(torch.Generator("cuda").manual_seed(1), cfg,
+                               torch.bfloat16).items()}
+    x = torch.randn(2, 96, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    before = fa.bwd_launches
+    q, k, v = L._qkv(params, cfg, x, torch.arange(96, device="cuda").expand(2, 96))
+    out = L.attend(q, k, v, causal=True)
+    if out.grad_fn is None or "FlashAttention" not in type(out.grad_fn).__name__:
+        raise AssertionError(f"layers.attend on the card: grad_fn {out.grad_fn}, not K2's")
+    (out.reshape(2, 96, -1) @ params["wo"]).float().square().mean().backward()
+    torch.cuda.synchronize()
+    if fa.bwd_launches != before + 1:
+        raise AssertionError("the backward of layers.attend did not launch K2's backward")
+    for name in ("wq", "wk", "wv"):
+        if params[name].grad is None or not params[name].grad.abs().max() > 0:
+            raise AssertionError(f"no gradient reached {name} through K2")
+    print(f"K2 backward vs plain on the card: {json.dumps(errors)}; layers.attend "
+          f"has grad_fn {type(out.grad_fn).__name__}, wq/wk/wv gradients nonzero")
+    return errors
+
+
+def assert_trees_close(got, want, what, atol=1e-4, rtol=1e-4) -> float:
+    err = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(g.cpu(), w.cpu(), atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{what}: {m}")
+        err = max(err, max_err(g.cpu(), w.cpu()))
+    return err
+
+
+def check_small_dense(seed) -> dict:
+    """The smoke qwen3-1.7b in float32 on the card against the CPU: prefill
+    and decode logits at atol/rtol 1e-4 with equal greedy tokens; 2 train
+    steps (2 microbatches, remat) with loss, grad_norm and the updated
+    parameters at 1e-4; a checkpoint saved from the card restored equal, bit
+    for bit."""
+    cfg = dataclasses.replace(configs.smoke(DENSE_ARCH), param_dtype="float32",
+                              compute_dtype="float32", microbatches=2, remat=True)
+    fam = family(cfg)
+    params = fam.init_params(cfg, torch.Generator("cpu").manual_seed(seed), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        2, cfg.vocab, (2, SMOKE_PROMPT)))
+    fwd, bwd = fa.launches, fa.bwd_launches
+    runs = {}
+    for device in ("cpu", "cuda"):
+        on = L.tree_map(lambda t: t.to(device), params)
+        runs[device] = serve_run(cfg, on, tokens.to(device), SMOKE_DECODE,
+                                 SMOKE_PROMPT + SMOKE_DECODE + 1)
+    torch.cuda.synchronize()
+    if fa.launches - fwd != cfg.n_layers:
+        raise AssertionError(f"the smoke dense prefill launched K2 {fa.launches - fwd} "
+                             f"times, expected {cfg.n_layers}")
+    out = {"logits_max_abs_err": 0.0}
+    for step, (g, w) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4,
+                                   msg=lambda m: f"dense step {step}: {m}")
+        out["logits_max_abs_err"] = max(out["logits_max_abs_err"], max_err(g.cpu(), w))
+    for step, (g, w) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"dense greedy tokens differ at decode step {step}")
+
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=4, seed=seed)
+    trained = {}
+    for device in ("cpu", "cuda"):
+        p = L.tree_map(lambda t: t.to(device, copy=True), params)
+        o = adamw.init(p, opt_cfg)
+        step_fn = train.make_train_step(cfg, opt_cfg, total_steps=300)
+        metrics = []
+        for step in SMALL_TRAIN_STEPS:
+            p, o, m = step_fn(p, o, train.batch_to(host_batch(dcfg, step, 0, 1), device), step)
+            metrics.append({k: float(v) for k, v in m.items()})
+        trained[device] = (p, o, metrics)
+    torch.cuda.synchronize()
+    if fa.bwd_launches - bwd != cfg.microbatches * len(SMALL_TRAIN_STEPS) * cfg.n_layers:
+        raise AssertionError(f"the smoke train steps launched K2's backward "
+                             f"{fa.bwd_launches - bwd} times")
+    for got, want in zip(trained["cuda"][2], trained["cpu"][2]):
+        for k in ("loss", "grad_norm", "lr"):
+            if not math.isclose(got[k], want[k], rel_tol=1e-4, abs_tol=1e-4):
+                raise AssertionError(f"dense train step {k}: card {got[k]} CPU {want[k]}")
+    out["train_metrics"] = trained["cuda"][2]
+    out["params_max_abs_err"] = assert_trees_close(trained["cuda"][0], trained["cpu"][0],
+                                                   "dense train params")
+    out["moments_max_abs_err"] = assert_trees_close(
+        {"m": trained["cuda"][1]["m"], "v": trained["cuda"][1]["v"]},
+        {"m": trained["cpu"][1]["m"], "v": trained["cpu"][1]["v"]}, "dense train moments")
+
+    p, o, _ = trained["cuda"]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        ckpt.save(d, SMALL_TRAIN_STEPS[-1] + 1, p, o)
+        zeros = L.tree_map(torch.zeros_like, {"p": p, "o": o})
+        rp, ro, step = ckpt.restore_latest(d, zeros["p"], zeros["o"])
+    if step != SMALL_TRAIN_STEPS[-1] + 1:
+        raise AssertionError(f"restored step {step}")
+    for g, w in zip(tree_leaves({"p": rp, "o": ro}), tree_leaves({"p": p, "o": o})):
+        if g.device != w.device or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError("a checkpoint saved on the card did not restore equal")
+    print(f"smoke {DENSE_ARCH} (float32): prefill + {SMOKE_DECODE} decode steps, card "
+          f"equals CPU (logits {out['logits_max_abs_err']!r}), greedy tokens equal; "
+          f"{len(SMALL_TRAIN_STEPS)} train steps equal (params "
+          f"{out['params_max_abs_err']!r}); checkpoint restored bit for bit")
+    return out
+
+
+def training_path(seed) -> dict:
+    """qwen3-1.7b at full width and depth: TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens from the port's data pipeline, through
+    ``launch.train.make_train_step`` (the configuration's 2 microbatches,
+    remat, bf16 parameters, float32 moments), then one profiled step."""
+    cfg = configs.get(DENSE_ARCH)
+    fam = family(cfg)
+    t0 = time.perf_counter()
+    params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    opt_state = adamw.init(params, opt_cfg)
+    step_fn = train.make_train_step(cfg, opt_cfg, total_steps=TRAIN_TOTAL_STEPS)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_step = cfg.n_layers * cfg.microbatches             # K2 backward launches a step
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * cfg.param_count() * tokens
+
+    steps = []
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        batch = train.batch_to(host_batch(dcfg, step, 0, 1), "cuda")
+        bwd_before = fa.bwd_launches
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, step)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        rec = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"]), "step_s": took,
+               "k2_bwd_launches": fa.bwd_launches - bwd_before}
+        steps.append(rec)
+        print(f"train step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
+              f"{took:.3f} s")
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            raise AssertionError(f"train step {step}: loss or grad_norm not finite: {rec}")
+        if rec["k2_bwd_launches"] != per_step:
+            raise AssertionError(f"train step {step} launched K2's backward "
+                                 f"{rec['k2_bwd_launches']} times, expected {per_step}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
+    # remat runs each layer's forward twice: once in the loss, once in backward
+    if launches["flash_attention"] != 2 * per_step * TRAIN_STEPS:
+        raise AssertionError(f"training launched K2 {launches['flash_attention']} times, "
+                             f"expected {2 * per_step * TRAIN_STEPS}")
+    ln_vocab = math.log(cfg.vocab)
+    if abs(steps[0]["loss"] - ln_vocab) > 0.5:
+        raise AssertionError(f"first loss {steps[0]['loss']} is not within 0.5 of "
+                             f"ln {cfg.vocab} = {ln_vocab}")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(params)):
+        raise AssertionError("trained parameters not finite")
+    steady = [s["step_s"] for s in steps[1:]]
+    step_s = float(np.mean(steady))
+
+    batch = train.batch_to(host_batch(dcfg, TRAIN_STEPS, 0, 1), "cuda")
+    profile = profile_device(lambda: step_fn(params, opt_state, batch, TRAIN_STEPS),
+                             watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_kernel",
+                                    "attn_bwd_dq_kernel", "attn_bwd_dot_kernel"))
+    summary = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+        "moment_dtype": cfg.opt_state_dtype, "microbatches": cfg.microbatches,
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "tokens_per_step": tokens, "setup_s": setup_s, "steps": steps,
+        "step_s_mean_after_first": step_s, "tokens_per_s": tokens / step_s,
+        "first_step_s": steps[0]["step_s"], "ln_vocab": ln_vocab,
+        "peak_mem_gib": peak, "launches": launches,
+        "k2_bwd_launches_per_step": per_step,
+        "model_flops_per_step": flops,
+        "bf16_peak_flops": BF16_OPS_PER_S,
+        "bf16_peak_source": "NVIDIA H100 SXM data sheet, dense bf16 tensor cores",
+        "model_flops_share_of_peak": flops / step_s / BF16_OPS_PER_S,
+        "profile": profile,
+    }
+    print(f"training {cfg.name}: {TRAIN_STEPS} steps x {tokens} tokens, "
+          f"{step_s:.3f} s/step after the first ({tokens / step_s:.0f} tokens/s, "
+          f"{summary['model_flops_share_of_peak']:.3f} of the bf16 peak in 6·N·tokens), "
+          f"first loss {steps[0]['loss']:.4f} (ln V {ln_vocab:.4f}), peak {peak:.2f} GiB")
+    print(json.dumps({"training_path": summary}))
     return summary
 
 
@@ -864,6 +1205,43 @@ def time_k3(gen) -> dict:
                   operations_fp32_cuda_cores_ms=1e3 * f32_s)
 
 
+def time_k2_backward(gen) -> dict:
+    """K2's backward at the training shape: kernel, the plain version's
+    autograd backward, and SDPA's backward (the library yardstick)."""
+    B, S, H, KV, hd = K2_TRAIN_SHAPE
+    q, k, v = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16)
+    do = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16)[0]
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = fa.flash_attention_plain(*leaves, causal=True)
+    lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *lib_leaves, is_causal=True, enable_gqa=True)
+    lib_do = do.transpose(1, 2).contiguous()
+
+    def kernel(i):
+        return fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=True)
+
+    def plain(i):
+        return torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+
+    def library(i):
+        return torch.autograd.grad(lib_out, lib_leaves, lib_do, retain_graph=True)
+
+    got = kernel(0)
+    torch.cuda.synchronize()
+    errors = hold_k2_backward(got, q, k, v, do, True)   # held at the training shape
+    print(f"K2 backward vs plain at {list(K2_TRAIN_SHAPE)} bf16: {json.dumps(errors)}")
+    lib_err = max(max_err(g, w.transpose(1, 2)) for g, w in zip(got, library(0)))
+    ops_ = 10 * B * H * hd * S * (S + 1) / 2     # five products, causal half
+    # q, do, dq and k, v, dk, dv once each in bf16, lse in float32
+    moved = 2 * (3 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S
+    return timing("flash_attention_bwd", list(K2_TRAIN_SHAPE), kernel, plain, library,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  max_abs_err=max(errors[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
+                  **errors, library_max_abs_err=lib_err)
+
+
 def library_times(library) -> dict:
     """The library call's device time, or its time per call (CUDA events)
     where the profiler records no device time for it."""
@@ -915,12 +1293,16 @@ def main() -> int:
     check_k2(gen)
     check_k3(gen)
     check_small_hybrid(args.seed)
-    serving = serving_path(args.seed)
+    serving = serving_path(SERVE_ARCH, args.seed, "serving_path")
+    check_k2_backward(gen)
+    check_small_dense(args.seed)
+    dense = serving_path(DENSE_ARCH, args.seed, "dense_serving_path")
+    training = training_path(args.seed)
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
-    k2, k3 = time_k2(gen), time_k3(gen)
+    k2, k3, k2b = time_k2(gen), time_k3(gen), time_k2_backward(gen)
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
@@ -931,12 +1313,21 @@ def main() -> int:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "shape": [OPS, N_REPLICAS], "card": card,
         "shapes": shapes}]
-    for k, replaces in ((k2, "src/repro/kernels/flash_attention.py:91"),
-                        (k3, "src/repro/kernels/ssd_scan.py:64")):
+    k2["launches_by_path"] = {
+        "zamba2_prefill": serving["launches"]["flash_attention"],
+        "qwen3_prefill": dense["launches"]["flash_attention"],
+        f"qwen3_train_{TRAIN_STEPS}_steps": training["launches"]["flash_attention"]}
+    k2b["launches_per_train_step"] = training["k2_bwd_launches_per_step"]
+    for k, replaces, launches in (
+            (k2, "src/repro/kernels/flash_attention.py:91",
+             serving["launches"]["flash_attention"]),
+            (k2b, "src/repro/kernels/flash_attention.py:91",
+             training["launches"]["flash_attention_bwd"]),
+            (k3, "src/repro/kernels/ssd_scan.py:64", serving["launches"]["ssd_scan"])):
         kernels.append({
             "name": k["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k['name']}.cu",
-            "replaces": replaces, "launches": serving["launches"][k["name"]],
+            "replaces": replaces, "launches": launches,
             "ms": k["kernel_ms"], "card": card, **k})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,7 +18,8 @@ ALL_ARCHS = [
     "mamba2_780m", "seamless_m4t_medium", "internvl2_26b",
 ]
 # the ones ported so far
-ARCHS = ["zamba2_1p2b", "mamba2_780m"]
+ARCHS = ["zamba2_1p2b", "mamba2_780m", "qwen3_1p7b", "qwen3_8b",
+         "phi4_mini_3p8b", "nemotron_4_340b"]
 
 # canonical ids as assigned (dashes) -> module names
 ALIASES = {a.replace("_", "-").replace("-1p7b", "-1.7b")

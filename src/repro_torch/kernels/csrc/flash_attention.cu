@@ -1,5 +1,7 @@
 // K2 on Hopper: causal or non-causal GQA self-attention with an online
-// softmax (flash attention), forward only.
+// softmax (flash attention), forward. Its backward, which recomputes the
+// probabilities from the log-sum-exp this kernel can write, is
+// flash_attention_bwd.cu.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py,
 // `flash_attention` and its `_kernel`. The plain PyTorch version of the same
@@ -11,7 +13,10 @@
 // s_ij = (q[b,i,h] . k[b,j,h/(H/KV)]) * hd^-0.5, and s_ij = -1e30 where key j
 // is masked (j > i when causal, and j >= S). The running max m, the running
 // sum l and the accumulator are float32; o = acc / max(l, 1e-30), rounded to
-// q's dtype.
+// q's dtype. Where the caller passes an lse buffer (training), each row's
+// log-sum-exp of the scaled logits, lse[b,h,i] = m + log(l) in float32, goes
+// to it, (B,H,S); serving passes null and the kernels do what they did
+// without it.
 //
 // Bound: operations. At the serving path's prefill (B 8, S 2048, H = KV = 32,
 // hd 64, causal, bf16) the work is 4*B*H*S*S*hd/2 = 1.37e11 FLOP against
@@ -128,7 +133,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int S, int H, int KV, float scale, bool causal) {
+    float* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, float scale,
+    bool causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kKPitch = HD + 1;
   constexpr int kCols = (HD + 31) / 32;  // output columns per lane (lanes >= HD idle at 16)
@@ -257,6 +263,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 #pragma unroll
       for (int c = 0; c < kCols; ++c)
         if (lane + 32 * c < HD) out[lane + 32 * c] = acc[r][c] / denom;
+      if (lse != nullptr && lane == 0)
+        lse[(static_cast<int64_t>(b) * H + h) * S + qpos] = m[r] + logf(denom);
     }
   }
 }
@@ -355,8 +363,8 @@ __device__ __forceinline__ void tc_load_rows(__nv_bfloat16* dst, const __nv_bflo
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int H,
-    int KV, float scale_log2, bool causal) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int KV, float scale_log2, bool causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
   constexpr int MT = tc_mtiles<HD>();  // 16-row m tiles of the warp
@@ -531,7 +539,14 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
     for (int r = 0; r < 2; ++r) {
       l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
       l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
-      l[mt][r] = 1.0f / fmaxf(l[mt][r], 1e-30f);
+      const float denom = fmaxf(l[mt][r], 1e-30f);
+      const int row = row0 + 16 * mt + g + 8 * r;
+      // m holds raw scores and l sums 2^((s - m) scale log2 e), so the
+      // natural log-sum-exp of the scaled logits is (m scale log2 e + log2 l) ln 2
+      if (lse != nullptr && t == 0 && row < S)
+        lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+            (m[mt][r] * scale_log2 + log2f(denom)) * 0.6931471805599453f;
+      l[mt][r] = 1.0f / denom;
     }
 #pragma unroll
     for (int n = 0; n < kDT; ++n) {
@@ -552,8 +567,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-               int H, int KV, bool causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int S, int H, int KV, bool causal, cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<HD>() * sizeof(float);
   auto kernel = flash_attention_f32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -562,15 +577,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
       static_cast<float>(1.0 / sqrt(static_cast<double>(HD))),  // float(hd ** -0.5)
       causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                int H, int KV, bool causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int S, int H, int KV, bool causal, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<HD>();
   auto kernel = flash_attention_bf16_kernel<HD>;
   cudaError_t err =
@@ -580,16 +595,16 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   kernel<<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KV,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H, KV,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-           int KV, bool causal, bool is_bf16, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<HD>(q, k, v, o, B, S, H, KV, causal, stream)
-                 : launch_f32<HD>(q, k, v, o, B, S, H, KV, causal, stream);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int H, int KV, bool causal, bool is_bf16, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<HD>(q, k, v, o, lse, B, S, H, KV, causal, stream)
+                 : launch_f32<HD>(q, k, v, o, lse, B, S, H, KV, causal, stream);
 }
 
 }  // namespace
@@ -597,17 +612,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // Launches on `stream` and returns cudaGetLastError(). The wrapper has
 // checked shapes, dtypes, contiguity and alignment; hd is 16, 32, 64 or 128.
 // bfloat16 inputs run the tensor-core kernel, float32 inputs the CUDA-core
-// kernel.
+// kernel. `lse` is a float32 (B,H,S) buffer for each row's log-sum-exp, or
+// null.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int B, int S, int H, int KV, int hd,
-                                      int causal, int is_bf16, void* stream) {
+                                      void* o, void* lse, int B, int S, int H, int KV,
+                                      int hd, int causal, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0, bf = is_bf16 != 0;
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, KV, c, bf, s);
-    case 32: return launch<32>(q, k, v, o, B, S, H, KV, c, bf, s);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KV, c, bf, s);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KV, c, bf, s);
+    case 16: return launch<16>(q, k, v, o, l, B, S, H, KV, c, bf, s);
+    case 32: return launch<32>(q, k, v, o, l, B, S, H, KV, c, bf, s);
+    case 64: return launch<64>(q, k, v, o, l, B, S, H, KV, c, bf, s);
+    case 128: return launch<128>(q, k, v, o, l, B, S, H, KV, c, bf, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

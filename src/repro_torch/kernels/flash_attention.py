@@ -4,7 +4,10 @@
 and k/v ``(B,S,KV,hd)``, query head ``h`` reading kv head ``h // (H/KV)``.
 Masked logits are ``-1e30``; the output has q's dtype.
 
-Three functions compute it:
+Its gradient is K2's backward (``csrc/flash_attention_bwd.cu``), which the
+JAX package takes by differentiating ``repro.models.layers.attend``.
+
+The functions:
   * :func:`flash_attention_cuda` launches the hand-written CUDA kernel
     ``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/flash_attention.py`` (``flash_attention`` and its
@@ -12,14 +15,20 @@ Three functions compute it:
     The dtype selects the kernel: bfloat16 runs on the tensor cores
     (``mma.sync`` bf16 products with float32 accumulators, P rounded to
     bf16 for the P V product, K/V tiles in a ``cp.async`` ring), float32 on
-    CUDA cores in float32 throughout, as its 1e-4 contract asks;
+    CUDA cores in float32 throughout, as its 1e-4 contract asks. With
+    ``return_lse`` it also returns each row's log-sum-exp;
+  * :func:`flash_attention_bwd_cuda` launches the backward kernel: dq, dk,
+    dv from q, k, v, do and the log-sum-exp, by recompute;
+  * :class:`FlashAttention` is the ``torch.autograd.Function`` of the two;
   * :func:`flash_attention_plain` is the plain PyTorch version:
     :func:`attend_chunked` for S > ``ATTN_CHUNK`` that divides into chunks,
     else :func:`attend_full`, the choice ``repro.models.layers.attend``
     makes (the JAX ``ref.flash_attention_ref`` makes the same one wherever
     its chunked reshape is defined);
   * :func:`flash_attention` picks by the inputs' device: a CUDA tensor
-    launches the kernel or raises, a CPU tensor runs the plain version.
+    launches the kernel (through :class:`FlashAttention` where a gradient
+    is wanted) or raises, a CPU tensor runs the plain version, whose autograd
+    gradient is the backward kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ ATTN_CHUNK = 512
 HEAD_DIMS = (16, 32, 64, 128)   # 16: the smoke configs' heads
 DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches made by flash_attention_cuda since the count was last reset.
+# Kernel launches made by flash_attention_cuda and flash_attention_bwd_cuda
+# since the counts were last reset.
 launches = 0
+bwd_launches = 0
 
 
 def attend_full(q, k, v, *, causal: bool, q_offset: int = 0):
@@ -78,9 +89,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """K2 on the inputs' device: the kernel for CUDA, the plain version for
-    the CPU."""
+    """K2 on the inputs' device: the kernel for CUDA (differentiable through
+    the backward kernel), the plain version for the CPU."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return FlashAttention.apply(q, k, v, causal)
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -92,56 +105,129 @@ def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _bwd_launcher():
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_launch
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    fn.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, q, k, v, do=None):
+    """Raise unless q ``(B,S,H,hd)``, k and v ``(B,S,KV,hd)`` and, for the
+    backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
+    of one dtype on one device that the kernels take. Returns
+    (B, S, H, KV, hd)."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,S,KV,hd); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or KV == 0 or H % KV:
+        raise ValueError(f"{name}: self-attention with H a multiple of KV only; "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"{name}: do must have q's shape {tuple(q.shape)}; got "
+                         f"{tuple(do.shape)}")
+    tensors = (q, k, v) if do is None else (q, k, v, do)
+    device = q.device
+    if device.type != "cuda" or any(x.device != device for x in tensors):
+        raise ValueError(f"{name}: inputs must lie on one CUDA device; got "
+                         f"{[str(x.device) for x in tensors]}")
+    if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in tensors):
+        raise TypeError(f"{name}: inputs must all be float32 or all bfloat16; got "
+                        f"{[x.dtype for x in tensors]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd}; the kernel takes {HEAD_DIMS}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+    return B, S, H, KV, hd
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True, return_lse: bool = False):
     """Launch the CUDA kernel on the current stream of the inputs' device.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device: q ``(B,S,H,hd)``, k and v ``(B,S,KV,hd)`` with ``H % KV == 0`` and
     ``hd`` in ``HEAD_DIMS``; any S. bfloat16 launches the tensor-core
-    kernel, float32 the CUDA-core kernel. Raises on anything else and when
-    the launch fails.
+    kernel, float32 the CUDA-core kernel. Returns the output, and with
+    ``return_lse`` also each row's float32 log-sum-exp of the scaled logits,
+    ``(B,H,S)``. Raises on anything else and when the launch fails.
     """
     global launches
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention_cuda: q must be (B,S,H,hd) and k, v "
-                         f"(B,S,KV,hd); got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or KV == 0 or H % KV:
-        raise ValueError("flash_attention_cuda: self-attention with H a multiple "
-                         f"of KV only; got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    tensors = (q, k, v)
-    device = q.device
-    if device.type != "cuda" or any(x.device != device for x in tensors):
-        raise ValueError("flash_attention_cuda: inputs must lie on one CUDA "
-                         f"device; got {[str(x.device) for x in tensors]}")
-    if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in tensors):
-        raise TypeError("flash_attention_cuda: inputs must all be float32 or all "
-                        f"bfloat16; got {[x.dtype for x in tensors]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {hd}; the kernel takes "
-                         f"{HEAD_DIMS}")
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("flash_attention_cuda: inputs must be contiguous")
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("flash_attention_cuda: inputs must be 16-byte aligned")
+    B, S, H, KV, hd = _check("flash_attention_cuda", q, k, v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0:
-        return out
-    with torch.cuda.device(device):
+        return (out, lse) if return_lse else out
+    with torch.cuda.device(q.device):
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, S, H, KV, hd, int(causal),
+                          out.data_ptr(), None if lse is None else lse.data_ptr(),
+                          B, S, H, KV, hd, int(causal),
                           int(q.dtype == torch.bfloat16),
-                          torch.cuda.current_stream(device).cuda_stream)
+                          torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: kernel launch failed with "
                            f"CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
+    """Launch K2's backward kernel on the current stream: ``(dq, dk, dv)`` in
+    the inputs' dtype from q, k, v, the output's gradient ``do`` (q's shape
+    and dtype) and the forward's float32 log-sum-exp ``(B,H,S)``. Takes what
+    :func:`flash_attention_cuda` takes; raises on anything else and when a
+    launch fails. (The forward's output is not needed: the kernel takes
+    rowsum(do * o) from the recomputed probabilities, which in bf16 is more
+    accurate than from the rounded output; see the source.)"""
+    global bwd_launches
+    B, S, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do)
+    if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (B, H, S)
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be a contiguous float32 "
+                         f"{(B, H, S)} tensor on {q.device}; got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)   # rowsum(do * o)
+    with torch.cuda.device(q.device):
+        err = _bwd_launcher()(*(x.data_ptr() for x in (q, k, v, do, lse, D, dq, dk, dv)),
+                              B, S, H, KV, hd, int(causal), int(q.dtype == torch.bfloat16),
+                              torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_cuda: kernel launch failed with "
+                           f"CUDA error {err}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 on the card with its gradient: the forward kernel writes each
+    row's log-sum-exp and saves ``(q, k, v, lse)``; the backward kernel
+    recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, do.contiguous(), lse,
+                                              causal=ctx.causal)
+        return dq, dk, dv, None

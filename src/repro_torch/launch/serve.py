@@ -40,7 +40,7 @@ def make_decode_step(cfg):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="qwen3-1.7b")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=2)

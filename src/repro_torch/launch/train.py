@@ -1,0 +1,164 @@
+"""Training step builder + CLI driver (port of ``repro.launch.train``, on
+one device: the sharding rules wait for ``launch/shardings``).
+
+``make_train_step`` returns a (params, opt_state, batch, step) ->
+(params, opt_state, metrics) function with:
+
+  * microbatch gradient accumulation in ``cfg.grad_accum_dtype``, each add
+    in float32,
+  * remat around each layer (``cfg.remat``, inside the model),
+  * AdamW with configurable moment dtype,
+  * an optional ``quorum`` hook between the gradients and AdamW (WOC's
+    weighted-quorum gradient commit, ``repro_torch.coord.grad_quorum``).
+
+It updates the parameters and moments in place (the JAX package donates
+them) and returns the same trees.
+
+CLI (on CUDA unless ``--device cpu``):
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import configs, default_device
+from repro_torch.data import DataConfig, host_batch
+from repro_torch.models import family
+from repro_torch.optim import AdamWConfig, adamw, schedule
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def value_and_grad(loss_for, params, batch):
+    """The loss and its gradient with respect to every leaf of ``params``,
+    as a tree with the parameters' dtypes."""
+    with torch.enable_grad():
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = loss_for(p, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+    it = iter(grads)
+    # tree_leaves visits keys sorted; rebuild the tree in that order
+    return loss.detach(), _fill(params, it)
+
+
+def _fill(tree, it):
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
+                    quorum=None):
+    fam = family(cfg)
+
+    def loss_for(p, mb):
+        return fam.loss_fn(cfg, p, mb)
+
+    def train_step(params, opt_state, batch, step):
+        M = cfg.microbatches
+        if M > 1:
+            acc_dt = getattr(torch, cfg.grad_accum_dtype)
+            loss = 0.0
+            grads = tree_map(lambda t: torch.zeros(t.shape, dtype=acc_dt,
+                                                   device=t.device), params)
+            b = next(iter(batch.values())).shape[0] // M
+            for i in range(M):
+                mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
+                mloss, mgrads = value_and_grad(loss_for, params, mb)
+                tree_map(lambda a, g: a.copy_(a.float() + g.float()), grads, mgrads)
+                del mgrads
+                loss = loss + mloss
+            loss = loss / M
+            tree_map(lambda g: g.div_(M), grads)
+        else:
+            loss, grads = value_and_grad(loss_for, params, batch)
+
+        if quorum is not None:    # WOC weighted-quorum DP commit (coord/)
+            grads, quorum_metrics = quorum(grads)
+        else:
+            quorum_metrics = {}
+
+        lr_scale = schedule.cosine_with_warmup(step, total=total_steps).to(loss.device)
+        params, opt_state, metrics = adamw.update(
+            grads, opt_state, params, opt_cfg, lr_scale=lr_scale)
+        metrics = {"loss": loss, **metrics, **quorum_metrics}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A numpy batch from ``data.host_batch`` as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# CLI driver
+# ---------------------------------------------------------------------------
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-8b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-sized)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint directory to resume from")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    cfg = dataclasses.replace(cfg, microbatches=1)
+    fam = family(cfg)
+    opt_cfg = AdamWConfig(lr=args.lr, moment_dtype=cfg.opt_state_dtype)
+    device = default_device(args.device)
+
+    params = fam.init_params(cfg, torch.Generator(device).manual_seed(args.seed),
+                             device=device)
+    opt_state = adamw.init(params, opt_cfg)
+    step0 = 0
+    if args.resume:
+        from repro_torch.checkpoint import manager as ckpt
+        params, opt_state, step0 = ckpt.restore_latest(
+            args.resume, params, opt_state)
+        print(f"resumed from step {step0}")
+
+    train_step = make_train_step(cfg, opt_cfg, total_steps=args.steps)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                      global_batch=args.batch, seed=args.seed)
+    writer = None
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import manager as ckpt
+        writer = ckpt.AsyncCheckpointer(args.ckpt_dir)
+
+    metrics = {}
+    for step in range(step0, args.steps):
+        batch = batch_to(host_batch(dcfg, step, 0, 1), device)
+        t0 = time.time()
+        params, opt_state, metrics = train_step(params, opt_state, batch, step)
+        loss = float(metrics["loss"])
+        print(f"step {step:5d} loss {loss:8.4f} "
+              f"gnorm {float(metrics['grad_norm']):8.3f} "
+              f"dt {time.time()-t0:6.2f}s")
+        if writer is not None and (step + 1) % args.ckpt_every == 0:
+            writer.save(step + 1, params, opt_state)
+    if writer is not None:
+        writer.save(args.steps, params, opt_state)
+        writer.wait()
+    print("done")
+    return params, opt_state, metrics
+
+
+if __name__ == "__main__":
+    main()

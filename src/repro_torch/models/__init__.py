@@ -6,18 +6,22 @@ functional interface for serving:
   prefill(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)
 
+and, for the families that train so far (dense), ``loss_fn(cfg, params,
+batch)``.
+
 Only the ported families are listed; the others raise NotImplementedError.
 """
 
-from repro_torch.models import hybrid, mamba2
+from repro_torch.models import hybrid, mamba2, transformer
 
 FAMILIES = {
+    "dense": transformer,
     "ssm": mamba2,
     "hybrid": hybrid,
 }
 
 # families of the JAX package that the port does not have yet
-NOT_PORTED = ("dense", "moe", "encdec", "vlm")
+NOT_PORTED = ("moe", "encdec", "vlm")
 
 
 def family(cfg):

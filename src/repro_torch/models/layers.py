@@ -9,9 +9,9 @@ Conventions, as in the JAX package:
     device. ``jax.random`` draws another stream, so tests carry the JAX
     package's parameters across (``repro_torch.convert``) instead.
 
-``attend`` runs kernel K2 on CUDA tensors (``kernels.ops.flash_attention``)
-and its plain version on CPU tensors. Sharding (``shard``, ``specs_*``) waits
-for ``launch/shardings``; ``softmax_xent`` for the training slice.
+``attend`` runs kernel K2 on CUDA tensors (``kernels.ops.flash_attention``,
+differentiable through K2's backward kernel) and its plain version on CPU
+tensors. Sharding (``shard``, ``specs_*``) waits for ``launch/shardings``.
 """
 
 from __future__ import annotations
@@ -24,13 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-exported)
     ATTN_CHUNK, attend_chunked, attend_full)
-
-
-def tree_map(fn: Callable, tree):
-    """``fn`` on every tensor of a nested dict, keeping its keys."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.tree import tree_map  # noqa: F401  (re-exported)
 
 
 def stack_layers(n: int, make_layer: Callable[[], dict]) -> dict:
@@ -54,6 +48,14 @@ def _copy_into(stacked, layer, i):
 def layer_at(layers: dict, i: int) -> dict:
     """Layer ``i`` of a stacked tree (views, no copy)."""
     return tree_map(lambda t: t[i], layers)
+
+
+def unstack_layers(layers: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree as views, through one ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where
+    ``layer_at`` would scatter each layer's into a zeroed full-size tensor."""
+    per_leaf = tree_map(lambda t: t.unbind(0), layers)
+    return [tree_map(lambda views: views[i], per_leaf) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -251,3 +253,16 @@ def embed(params, tokens):
 
 def unembed(params, x):
     return torch.einsum("bsd,vd->bsv", x, params["table"])
+
+
+def softmax_xent(logits, targets, mask=None):
+    """Token-level cross-entropy with a float32 log-sum-exp; with ``mask``,
+    the masked mean over at least one token."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return nll.mean()

@@ -1,0 +1,135 @@
+"""Dense decoder-only transformer LM (qwen3-8b/1.7b, nemotron-4-340b,
+phi4-mini) — also the backbone for the VLM and the decoder of the enc-dec
+(port of ``repro.models.transformer``).
+
+The JAX package's ``lax.scan`` over stacked layers is a loop here, and its
+``jax.checkpoint`` of the scan body (``cfg.remat``) is
+``torch.utils.checkpoint`` around each layer. Attention runs K2 on a card,
+forward and backward. Decode writes the KV cache in place, where the JAX
+package returns a new cache from a donated one. The sharding specs wait for
+``launch/shardings``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import default_device
+from repro_torch.models import layers as L
+from repro_torch.models.mamba2 import check_generator
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_layer(generator, cfg, dt):
+    return {"attn": L.init_attention(generator, cfg, dt),
+            "mlp": L.init_mlp(generator, cfg, dt),
+            "ln1": L.ones(generator, (cfg.d_model,), dt),
+            "ln2": L.ones(generator, (cfg.d_model,), dt)}
+
+
+def init_params(cfg, generator: torch.Generator, *, device=None):
+    """Parameters on ``device`` (default CUDA), drawn from ``generator``."""
+    g = check_generator(generator, device)
+    dt = cfg.pdtype()
+    return {
+        "embed": L.init_embed(g, cfg, dt),
+        "layers": L.stack_layers(cfg.n_layers, lambda: init_layer(g, cfg, dt)),
+        "ln_f": L.ones(g, (cfg.d_model,), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill trunk)
+# ---------------------------------------------------------------------------
+
+def block(cfg, layer, x, positions):
+    h = L.rmsnorm(x, layer["ln1"])
+    x = x + L.attention_train(layer["attn"], cfg, h, positions)
+    h = L.rmsnorm(x, layer["ln2"])
+    return x + L.mlp(layer["mlp"], cfg, h)
+
+
+def trunk(cfg, params, x, positions):
+    for layer in L.unstack_layers(params["layers"], cfg.n_layers):
+        if cfg.remat:
+            x = checkpoint(block, cfg, layer, x, positions, use_reentrant=False)
+        else:
+            x = block(cfg, layer, x, positions)
+    return L.rmsnorm(x, params["ln_f"])
+
+
+def embed_tokens(cfg, params, batch):
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    if cfg.family == "vlm":
+        # frontend stub: precomputed InternViT patch embeddings prepended
+        x = torch.cat([batch["image_embeds"].to(cfg.dtype()), x], dim=1)
+    return x
+
+
+def positions_for(x):
+    B, S, _ = x.shape
+    return torch.arange(S, device=x.device).expand(B, S)
+
+
+def loss_fn(cfg, params, batch):
+    x = embed_tokens(cfg, params, batch)
+    x = trunk(cfg, params, x, positions_for(x))
+    if cfg.family == "vlm":          # loss only over the text tail
+        x = x[:, cfg.n_image_tokens:]
+    logits = L.unembed(params["embed"], x)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + single-token decode against a (L,B,S,KV,hd) KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, B, S, dtype=None, *, device=None):
+    dt = dtype or cfg.dtype()
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    device = default_device(device)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def prefill(cfg, params, batch, cache_len=None):
+    """Logits of the last position and the KV cache, ``cache_len`` (default
+    the prompt length) positions long, zero past the prompt."""
+    x = embed_tokens(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = positions_for(x)
+    shape = (cfg.n_layers, B, cache_len or S, cfg.n_kv_heads, cfg.head_dim)
+    ks, vs = x.new_zeros(shape), x.new_zeros(shape)
+    for i, layer in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
+        h = L.rmsnorm(x, layer["ln1"])
+        q, k, v = L._qkv(layer["attn"], cfg, h, positions)
+        o = L.attend(q, k, v, causal=True)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
+        h = L.rmsnorm(x, layer["ln2"])
+        x = x + L.mlp(layer["mlp"], cfg, h)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x[:, -1:])
+    return logits, {"k": ks, "v": vs}
+
+
+def decode_step(cfg, params, cache, token, pos):
+    """One token for the whole batch at position ``pos`` (B,). Updates
+    ``cache`` IN PLACE and returns it."""
+    x = L.embed(params["embed"], token).to(cfg.dtype())    # (B,1,d)
+    for i in range(cfg.n_layers):
+        layer = L.layer_at(params["layers"], i)
+        h = L.rmsnorm(x, layer["ln1"])
+        a, _, _ = L.attention_decode(layer["attn"], cfg, h, cache["k"][i],
+                                     cache["v"][i], pos)
+        x = x + a
+        h = L.rmsnorm(x, layer["ln2"])
+        x = x + L.mlp(layer["mlp"], cfg, h)
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x)
+    return logits, cache

@@ -228,3 +228,111 @@ def test_k2_and_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
     big = ssd_inputs(0, 1, 1, 129, 1, 8, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="up to|from 1 to"):
         ssd.ssd_intra_chunk_cuda(*big)
+
+
+# ---------------------------------------------------------------------------
+# K2's log-sum-exp output and its backward kernel against the plain
+# version's autograd gradient. float32 at atol/rtol 1e-4, the forward's
+# contract. bfloat16 row by row against the plain gradient run in float32 on
+# the same bf16 inputs: each gradient's largest row error may be at most twice
+# the bf16 plain gradient's, or one bf16 ulp (2^-8), the rounding of the
+# output itself, where that is larger. A row's error is taken over its own
+# largest magnitude, or over 1e-3 of the largest magnitude of the three
+# gradients where that is larger: at S = 1 the softmax has one entry, dq and
+# dk are exactly zero, and the plain version computes them exactly.
+# ---------------------------------------------------------------------------
+
+from repro_torch.models import layers as L  # noqa: E402
+
+
+def plain_lse(q, k, causal):
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float().reshape(B, S, KV, H // KV, hd),
+                          k.float()) * hd ** -0.5
+    if causal:
+        keep = torch.arange(S, device=q.device)[:, None] >= torch.arange(S, device=q.device)
+        logits = torch.where(keep, logits, -1e30)
+    return torch.logsumexp(logits, -1).reshape(B, H, S)
+
+
+def plain_grads(q, k, v, do, causal):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_plain(*leaves, causal=causal)
+    return torch.autograd.grad(out, leaves, do)
+
+
+BF16_ULP = 2.0 ** -8
+
+
+def grad_row_err(got, ref, scale):
+    ref = ref.double()
+    diff = (got.double() - ref).abs().amax(-1)
+    return float((diff / ref.abs().amax(-1).clamp_min(scale * 1e-3)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 8, 2, 128, True),
+    (2, 96, 2, 1, 64, False), (1, 1, 2, 2, 32, True), (2, 64, 4, 4, 16, True),
+    (1, 384, 4, 2, 16, False)])
+def test_flash_attention_backward_matches_plain(no_tf32, dtype, B, S, H, KV, hd, causal):
+    q, k, v = attention_inputs(S + hd, B, S, H, KV, hd, dtype, no_tf32)
+    do = attention_inputs(S, B, S, H, KV, hd, dtype, no_tf32)[0]
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal))
+    torch.testing.assert_close(lse, plain_lse(q, k, causal), atol=1e-5 if dtype ==
+                               torch.float32 else 4e-3, rtol=0)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    want = plain_grads(q, k, v, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+    if dtype == torch.bfloat16:
+        ref = plain_grads(q.float(), k.float(), v.float(), do.float(), causal)
+        scale = max(float(r.abs().max()) for r in ref)
+        for g, w, r, name in zip(got, want, ref, ("dq", "dk", "dv")):
+            assert grad_row_err(g, r, scale) <= max(2 * grad_row_err(w, r, scale),
+                                                    BF16_ULP), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_on_cuda_is_differentiable_through_k2(no_tf32, dtype):
+    cfg = type("Cfg", (), dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                               qk_norm=True, rope_theta=1e6))
+    g = torch.Generator(no_tf32).manual_seed(0)
+    params = {k: t.requires_grad_() for k, t in L.init_attention(g, cfg, dtype).items()}
+    x = torch.randn(2, 40, 64, generator=g, device=no_tf32).to(dtype)
+    pos = torch.arange(40, device=no_tf32).expand(2, 40)
+    fwd, bwd = fa.launches, fa.bwd_launches
+    out = L.attention_train(params, cfg, x, pos)
+    assert out.grad_fn is not None
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (fwd + 1, bwd + 1)
+    for name in ("wq", "wk", "wv", "wo"):
+        assert params[name].grad is not None and params[name].grad.abs().max() > 0, name
+    # the plain attention on the CPU gives the same gradients (float32)
+    if dtype == torch.float32:
+        cpu = {k: t.detach().cpu().requires_grad_() for k, t in params.items()}
+        L.attention_train(cpu, cfg, x.cpu(), pos.cpu()).square().mean().backward()
+        for name in cpu:
+            torch.testing.assert_close(params[name].grad.cpu(), cpu[name].grad,
+                                       atol=1e-5, rtol=1e-4, msg=name)
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, lse.double())
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd_cuda(q, q, q, q.bfloat16(), lse)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bwd_cuda(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                                    lse)

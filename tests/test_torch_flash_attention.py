@@ -6,14 +6,17 @@ The Pallas kernel runs in interpret mode on the cases of
 file: 2e-5 in float32 (the same arithmetic summed in another order) and
 2e-2 in bfloat16 (the reference rounds the logits to bf16 before the
 softmax, the kernel does not). A ragged S, which the Pallas kernel refuses,
-is held against ``attend_full`` alone. The CUDA kernel is tested on a GPU
-by ``tests/test_torch_cuda.py``.
+is held against ``attend_full`` alone. The plain version's autograd gradient,
+which the backward kernel is held to on a card, is held here against
+``jax.grad`` of the JAX reference. The CUDA kernels are tested on a GPU by
+``tests/test_torch_cuda.py``.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -95,3 +98,43 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_cuda(torch.zeros(1, 8, 3, 64), q, q)
     with pytest.raises(ValueError, match=r"\(B,S,H,hd\)"):
         fa.flash_attention_cuda(q[0], q, q)
+
+
+# ---------------------------------------------------------------------------
+# K2's gradient: the plain version's autograd gradient (the yardstick of the
+# backward kernel on a card) against jax.grad of the JAX reference, float32,
+# at atol 2e-5 of the largest gradient and rtol 2e-5 (the same arithmetic's
+# gradient summed in another order).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 4, 1, 16, False),
+    (1, 1024, 2, 1, 128, True), (2, 64, 4, 2, 16, True)])
+def test_plain_gradient_matches_jax_grad(B, S, H, KV, hd, causal):
+    (jq, q), (jk, k), (jv, v) = inputs(S + hd, B, S, H, KV, hd, "float32")
+    do = np.random.default_rng(S).normal(size=(B, S, H, hd)).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jref.flash_attention_ref(q_, k_, v_, causal=causal) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.bwd_launches
+    out = ops.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(do))
+    assert fa.bwd_launches == before          # the CPU runs the plain gradient
+    for t, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+        w = np.asarray(w)
+        assert t.grad.shape == w.shape and t.grad.dtype == torch.float32
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=2e-5 * np.abs(w).max(),
+                                   rtol=2e-5, err_msg=name)
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    q = torch.zeros(1, 8, 2, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd_cuda(q, q, q, q, lse)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_bwd_cuda(q, q, q, q[:, :4], lse)

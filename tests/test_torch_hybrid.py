@@ -189,9 +189,9 @@ def test_configs_match_jax_and_unported_archs_raise():
     assert (cfg.head_dim, cfg.d_inner, cfg.n_ssm_heads) == (64, 4096, 64)
     assert cfg.dtype() == torch.bfloat16 and hybrid.n_shared(cfg) == 6
     with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get("qwen3-1.7b")
+        configs.get("granite-moe-3b-a800m")
     with pytest.raises(NotImplementedError, match="not ported"):
-        family(jax_configs.get("qwen3-1.7b"))
+        family(jax_configs.get("granite-moe-3b-a800m"))
     with pytest.raises(ValueError, match="unknown architecture"):
         configs.smoke("no-such-model")
 
@@ -224,6 +224,9 @@ def test_serve_cli_on_the_cpu(capsys):
     toks = serve.main(["--device", "cpu", "--prompt-len", "16", "--gen", "4"])
     assert toks.shape == (2, 4) and toks.device.type == "cpu"
     assert "generated (2, 4)" in capsys.readouterr().out
+    toks = serve.main(["--device", "cpu", "--arch", "zamba2-1.2b", "--prompt-len", "16",
+                       "--gen", "4"])
+    assert toks.shape == (2, 4)
     toks = serve.main(["--device", "cpu", "--arch", "mamba2-780m",
                        "--prompt-len", "8", "--gen", "2", "--batch", "1"])
     assert toks.shape == (1, 2)

@@ -26,6 +26,12 @@ def imported_modules(path):
 
 def test_port_sources_import_no_jax_and_no_repro():
     assert len(PORT_FILES) > 5
+    names = {p.relative_to(ROOT / "src").as_posix() for p in PORT_FILES[:-1]}
+    for module in ("models/transformer", "launch/train", "optim/adamw",
+                   "optim/schedule", "optim/grad_compress", "data/pipeline",
+                   "coord/ckpt_consensus", "coord/grad_quorum", "coord/membership",
+                   "checkpoint/manager", "tree"):
+        assert f"repro_torch/{module}.py" in names
     bad = [(path.relative_to(ROOT).as_posix(), mod)
            for path in PORT_FILES for mod in imported_modules(path)
            if mod.split(".")[0] in FORBIDDEN]
@@ -39,6 +45,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch, repro_torch.core, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.configs, repro_torch.models, repro_torch.launch.serve\n"
+        "import repro_torch.models.transformer, repro_torch.launch.train\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.coord\n"
+        "import repro_torch.checkpoint, repro_torch.tree\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('repro', 'jaxlib'))\n"
