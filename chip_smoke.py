@@ -17,8 +17,10 @@ Phases, each of which raises on failure so that the script exits non-zero:
      arrivals, rows without votes, with and without an explicit threshold and
      the members mask; then -0.0 beside +0.0 and NaN arrivals, on inputs that
      start 16-byte aligned and on slices a[1:] that do not, against the plain
-     version on the CPU; and the port's quorum slice at a small size on the
-     card against the same slice on the CPU;
+     version on the CPU; K1's wrapper raising NotImplementedError, with no
+     launch, where an input requires a gradient, and launching once under
+     no_grad; and the port's quorum slice at a small size on the card
+     against the same slice on the CPU;
   3. the quorum main path: a WeightTracker over 4,194,304 objects x 9
      replicas (t_fail = 2) and 20 steps of 65,536 in-flight ops, each step
      weights(r)[ids] -> core.quorum.quorum_commit -> observe; K1's launch
@@ -26,9 +28,11 @@ Phases, each of which raises on failure so that the script exits non-zero:
      back to back, after the host slept and after a synchronise that waited
      for the device, as long as a weights phase;
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
-     versions on the card, ragged edges of their tensor-core tiles included,
-     and the smoke zamba2 (float32) served on the card against the same on
-     the CPU;
+     versions on the card, ragged edges of their tensor-core tiles included;
+     K3 raising NotImplementedError, with no launch, where any of x, dt, A,
+     Bm, Cm requires a gradient (it has no backward kernel yet), and
+     launching once under no_grad; and the smoke zamba2 (float32) served on
+     the card against the same on the CPU;
   5. the serving main path: zamba2-1.2b at full width and depth (bf16,
      random weights from --seed), 8 prompts of 2048 tokens, then 32 greedy
      decode steps; K3 must launch 38 times and K2 6 times in the prefill and
@@ -36,7 +40,8 @@ Phases, each of which raises on failure so that the script exits non-zero:
      memory, and a profiled prefill;
   6. K2's backward against the plain version's autograd gradient on the
      card (the training shape, every head dim, GQA and ratio 1, ragged and
-     non-causal, float32 and bf16), K2's log-sum-exp output, and
+     non-causal, hd 128 ragged causal and non-causal, float32 and bf16),
+     K2's log-sum-exp output, and
      ``layers.attend`` on the card differentiable through it;
   7. the smoke qwen3-1.7b (float32) on the card against the CPU: prefill and
      3 decode steps, 2 train steps (2 microbatches, remat), and a checkpoint
@@ -299,6 +304,43 @@ def check_k1(rng) -> None:
     print(f"K1 vs plain: {rows} rows, {excluded} within {NEAR_T_RTOL} of T "
           f"excluded, max relative error {max_rel!r}; the plain version on the "
           f"card agrees with the CPU's on signed zeros and NaN: {card_sort_agrees}")
+
+    # K1 has no backward kernel: an input that requires a gradient makes the
+    # wrapper raise before it launches; under no_grad it launches once
+    a_np, w_np, thr_np = tie_inputs(rng, 129, N_REPLICAS)
+    a, w, thr = (torch.from_numpy(x).cuda() for x in (a_np, w_np, thr_np))
+    for name in ("arrivals", "weights", "threshold"):
+        args = {"arrivals": a, "weights": w, "threshold": thr}
+        args[name] = args[name].clone().requires_grad_()
+        call = lambda: qc.quorum_commit_cuda(args["arrivals"], args["weights"],  # noqa: E731
+                                             args["threshold"], members=True)
+        hold_grad_raise(call, lambda: qc.launches, f"K1 with {name} requiring a gradient")
+        before = qc.launches
+        with torch.no_grad():
+            got = call()
+        torch.cuda.synchronize()
+        if qc.launches != before + 1:
+            raise AssertionError(f"K1 under no_grad with {name} requiring a gradient "
+                                 f"launched {qc.launches - before} times, expected 1")
+        compare(f"K1 under no_grad, {name} requiring a gradient", got,
+                qc.quorum_commit_plain(a, w, thr, members=True), near_threshold(a, w, thr))
+    print("K1 raises NotImplementedError, launching nothing, for arrivals, weights or "
+          "threshold requiring a gradient; under no_grad it launches once and agrees")
+
+
+def hold_grad_raise(call, count, what) -> None:
+    """``call()`` asks a kernel with no backward for a gradient: it must raise
+    NotImplementedError and launch nothing (``count()`` unmoved)."""
+    before = count()
+    try:
+        call()
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError(f"{what}: no NotImplementedError where a gradient is wanted")
+    torch.cuda.synchronize()
+    if count() != before:
+        raise AssertionError(f"{what}: {count() - before} launches before the raise")
 
 
 def run_slice(tracker, r, ids, arrivals, observed, on_step=lambda s, w, res: None):
@@ -674,6 +716,34 @@ def check_k3(gen) -> dict:
         errors[f"{shape} x {str(xdtype)[6:]}"] = hold_k3(got, args)
     print(f"K3 vs plain on the card, max abs error (y, state, decay): "
           f"{json.dumps(errors)}")
+
+    # K3 has no backward kernel yet: ssd_chunked (mixer_forward's call) with
+    # any of x, dt, A, Bm, Cm requiring a gradient raises before a launch;
+    # the same inputs under no_grad launch K3 once and agree with the plain
+    # scan (1e-3: K3's 1e-4 carried through the inter-chunk recurrence)
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    S_, nh, hp, N, chunk = 256, 4, 64, 64, 128
+    inputs = {"x": randn(1, S_, nh, hp), "dt": torch.nn.functional.softplus(randn(1, S_, nh) - 2.0),
+              "A": -torch.exp(0.5 * randn(nh)), "Bm": randn(1, S_, N), "Cm": randn(1, S_, N)}
+    D = torch.ones(nh, device="cuda")
+    for name in inputs:
+        args = dict(inputs)
+        args[name] = args[name].clone().requires_grad_()
+        call = lambda: ssd.ssd_chunked(*args.values(), D, chunk)  # noqa: E731
+        hold_grad_raise(call, lambda: ssd.launches, f"K3 with {name} requiring a gradient")
+        before = ssd.launches
+        with torch.no_grad():
+            got = call()
+            torch.cuda.synchronize()
+            want = ssd.ssd_chunked_plain(*args.values(), D, chunk)
+        if ssd.launches != before + 1:
+            raise AssertionError(f"K3 under no_grad with {name} requiring a gradient "
+                                 f"launched {ssd.launches - before} times, expected 1")
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+    print("K3 raises NotImplementedError, launching nothing, for x, dt, A, Bm or Cm "
+          "requiring a gradient; under no_grad it launches once and agrees")
     return errors
 
 
@@ -940,6 +1010,10 @@ def check_k2_backward(gen) -> dict:
     cases += [((2, 1, 2, 2, 128), dt, True) for dt in (f32, bf16)]      # one row
     cases += [((1, 384, 4, 2, 64), dt, False) for dt in (f32, bf16)]    # non-causal
     cases += [((2, 200, 6, 2, 16), dt, False) for dt in (f32, bf16)]    # ragged non-causal
+    # hd 128, where the bf16 dK/dV kernel takes 32 q rows a step: ragged
+    # causal and ragged non-causal
+    cases += [((1, 130, 8, 2, 128), dt, True) for dt in (f32, bf16)]
+    cases += [((2, 200, 4, 2, 128), dt, False) for dt in (f32, bf16)]
     errors = {}
     for shape, dtype, causal in cases:
         q, k, v = attention_inputs(gen, *shape, dtype)
@@ -1121,8 +1195,8 @@ def training_path(seed) -> dict:
 
     batch = train.batch_to(host_batch(dcfg, TRAIN_STEPS, 0, 1), "cuda")
     profile = profile_device(lambda: step_fn(params, opt_state, batch, TRAIN_STEPS),
-                             watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_kernel",
-                                    "attn_bwd_dq_kernel", "attn_bwd_dot_kernel"))
+                             watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_bf16_kernel",
+                                    "attn_bwd_dq_bf16_kernel"))
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": cfg.param_count(), "param_dtype": cfg.param_dtype,

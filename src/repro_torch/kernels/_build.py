@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under ``build/repro_torch/``
 at the root of the checkout, which ``.gitignore`` lists. A library's file name
-carries a hash of its source and of the compiler flags, so a stale build is
-never loaded. Libraries are loaded with ``ctypes``. Nothing here runs when the
-module is imported.
+carries a hash of its source, of every header ``csrc/*.cuh`` and of the
+compiler flags, so a stale build is never loaded. Libraries are loaded with
+``ctypes``. Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -34,8 +34,12 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from the current ``csrc/<name>.cu`` lives."""
+    """Where the library built from the current ``csrc/<name>.cu`` and the
+    current headers ``csrc/*.cuh`` lives."""
     key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode())
+        key.update(header.read_bytes())
     key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 

@@ -17,8 +17,11 @@ The functions:
     bf16 for the P V product, K/V tiles in a ``cp.async`` ring), float32 on
     CUDA cores in float32 throughout, as its 1e-4 contract asks. With
     ``return_lse`` it also returns each row's log-sum-exp;
-  * :func:`flash_attention_bwd_cuda` launches the backward kernel: dq, dk,
-    dv from q, k, v, do and the log-sum-exp, by recompute;
+  * :func:`flash_attention_bwd_cuda` launches the backward kernels
+    (``csrc/flash_attention_bwd.cu``): dq, dk, dv from q, k, v, do and the
+    log-sum-exp, by recompute and with no atomics. bfloat16 runs two
+    tensor-core kernels (``mma.sync`` bf16, dS and P rounded to bf16 as
+    A operands), float32 two CUDA-core kernels;
   * :class:`FlashAttention` is the ``torch.autograd.Function`` of the two;
   * :func:`flash_attention_plain` is the plain PyTorch version:
     :func:`attend_chunked` for S > ``ATTN_CHUNK`` that divides into chunks,
@@ -201,9 +204,10 @@ def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    D = torch.empty((B, H, S), dtype=torch.float32, device=q.device)   # rowsum(do * o)
+    # D = rowsum(do * o) and (bf16) the renormalised log-sum-exp, for dk/dv
+    scratch = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd_launcher()(*(x.data_ptr() for x in (q, k, v, do, lse, D, dq, dk, dv)),
+        err = _bwd_launcher()(*(x.data_ptr() for x in (q, k, v, do, lse, scratch, dq, dk, dv)),
                               B, S, H, KV, hd, int(causal), int(q.dtype == torch.bfloat16),
                               torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

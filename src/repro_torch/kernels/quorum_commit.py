@@ -18,6 +18,12 @@ Three functions compute it:
 Each returns ``(commit_time f32, quorum_size i32, committed bool,
 weight_sum f32, members bool (ops, n) or None)``. Weights are assumed
 non-negative, as the protocol gives them.
+
+K1 has no backward kernel, and the kernel writes its outputs through
+``ctypes``, so they carry no autograd graph: where grad mode is on and an
+input requires a gradient, :func:`quorum_commit_cuda` raises
+``NotImplementedError`` before it launches. The plain version keeps its
+autograd gradient (``weight_sum`` with respect to the weights).
 """
 
 from __future__ import annotations
@@ -106,10 +112,18 @@ def quorum_commit_cuda(arrivals: torch.Tensor, weights: torch.Tensor,
 
     Takes contiguous float32 CUDA tensors, arrivals and weights ``(ops, n)``
     with ``1 <= n <= MAX_REPLICAS`` and an optional threshold ``(ops,)``, all
-    on one device; raises on anything else and when the launch fails. The
-    outputs are views of one allocation.
+    on one device; raises ``NotImplementedError`` where a gradient is wanted
+    (grad mode on and an input that requires one), and raises on anything
+    else and when the launch fails. The outputs are views of one allocation.
     """
     global launches
+    if (arrivals.requires_grad or weights.requires_grad
+            or (threshold is not None and threshold.requires_grad)) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "quorum_commit_cuda: an input requires a gradient, and K1 has no backward "
+            "kernel; the kernel's outputs would carry no gradient. Run it under "
+            "torch.no_grad() or on detached inputs, or on CPU tensors for the plain "
+            "version's gradient")
     _check_shapes(arrivals, weights, threshold)
     # written out rather than as loops over the tensors: this runs every call
     t = arrivals if threshold is None else threshold

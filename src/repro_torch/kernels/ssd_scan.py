@@ -19,6 +19,14 @@ For the intra-chunk block three functions compute it:
   * :func:`ssd_intra_chunk` picks by the inputs' device: a CUDA tensor
     launches the kernel or raises, a CPU tensor runs the plain version.
 
+K3 has no backward kernel yet (``ROADMAP.md`` queue 2). The kernel writes
+its outputs through ``ctypes``, so they carry no autograd graph: where grad
+mode is on and an input requires a gradient, :func:`ssd_intra_chunk_cuda`
+raises ``NotImplementedError`` before it launches, rather than return a
+result whose gradient would silently lack the intra-chunk terms. Under
+``torch.no_grad`` or ``torch.inference_mode`` (serving) it launches; the
+plain version on the CPU keeps its full autograd gradient.
+
 :func:`ssd_chunked` is the host side around it (the ``seg`` cumsum, the
 inter-chunk recurrence as a loop over chunks, ``y_inter`` and the ``D``
 skip). It follows ``repro.models.mamba2.ssd_chunked``, dtype promotions
@@ -94,10 +102,21 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
 
     Takes contiguous CUDA tensors on one device: x ``(B,nc,Q,nh,hp)`` in
     bfloat16 or float32, dt and seg ``(B,nc,Q,nh)`` and Bm, Cm ``(B,nc,Q,N)``
-    in float32, with Q, hp and N at most ``MAX_DIM``. Raises on anything else
-    and when the launch fails. Outputs as :func:`ssd_intra_chunk_plain`.
+    in float32, with Q, hp and N at most ``MAX_DIM``. Raises
+    ``NotImplementedError`` where a gradient is wanted (grad mode on and an
+    input that requires one), since K3 has no backward kernel yet; raises on
+    anything else and when the launch fails. Outputs as
+    :func:`ssd_intra_chunk_plain`.
     """
     global launches
+    if torch.is_grad_enabled() and (x.requires_grad or dt.requires_grad or seg.requires_grad
+                                    or Bm.requires_grad or Cm.requires_grad):
+        raise NotImplementedError(
+            "ssd_intra_chunk_cuda: an input requires a gradient, and K3's backward "
+            "kernel is not ported yet (ROADMAP.md queue 2, K3's backward); the "
+            "kernel's outputs would carry no gradient. Run it under torch.no_grad() "
+            "or torch.inference_mode(), or on CPU tensors for the plain version's "
+            "gradient")
     if x.ndim != 5:
         raise ValueError(f"ssd_intra_chunk_cuda: x must be (B,nc,Q,nh,hp); got "
                          f"{tuple(x.shape)}")

@@ -53,7 +53,14 @@ def _fill(tree, it):
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
                     quorum=None):
+    """The train step of ``cfg``; raises ``NotImplementedError`` for a family
+    that does not train in the port yet (no ``loss_fn``: ssm and hybrid)."""
     fam = family(cfg)
+    if not hasattr(fam, "loss_fn"):
+        raise NotImplementedError(
+            f"make_train_step: the {cfg.family} family ({cfg.name}) does not train in "
+            f"repro_torch yet: its loss_fn and K3's backward kernel are ROADMAP.md "
+            f"queue 1, item 1 (ssm and hybrid training)")
 
     def loss_for(p, mb):
         return fam.loss_fn(cfg, p, mb)

@@ -1,4 +1,4 @@
-"""K1's CUDA kernel against its plain version, on a GPU.
+"""The CUDA kernels against their plain versions, on a GPU.
 
 The kernel has no CPU mode, so every test here takes the ``cuda`` fixture
 and skips where ``torch.cuda.is_available()`` is false. The file imports no
@@ -275,7 +275,7 @@ def grad_row_err(got, ref, scale):
 @pytest.mark.parametrize("B,S,H,KV,hd,causal", [
     (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 8, 2, 128, True),
     (2, 96, 2, 1, 64, False), (1, 1, 2, 2, 32, True), (2, 64, 4, 4, 16, True),
-    (1, 384, 4, 2, 16, False)])
+    (1, 384, 4, 2, 16, False), (2, 200, 4, 2, 128, False)])
 def test_flash_attention_backward_matches_plain(no_tf32, dtype, B, S, H, KV, hd, causal):
     q, k, v = attention_inputs(S + hd, B, S, H, KV, hd, dtype, no_tf32)
     do = attention_inputs(S, B, S, H, KV, hd, dtype, no_tf32)[0]
@@ -336,3 +336,45 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_bwd_cuda(q, q, q, q.transpose(1, 2).contiguous().transpose(1, 2),
                                     lse)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 have no backward kernel: where a gradient is wanted their CUDA
+# wrappers raise and launch nothing; under no_grad they launch as before.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["x", "dt", "seg", "Bm", "Cm"])
+def test_k3_wrapper_raises_where_a_gradient_is_wanted(no_tf32, name):
+    args = list(ssd_inputs(0, 1, 2, 32, 2, 8, 4, torch.float32, no_tf32))
+    i = ("x", "dt", "seg", "Bm", "Cm").index(name)
+    args[i] = args[i].clone().requires_grad_()
+    before = ssd.launches
+    with pytest.raises(NotImplementedError, match="K3's backward"):
+        ssd.ssd_intra_chunk_cuda(*args)
+    assert ssd.launches == before
+    with torch.no_grad():
+        got = ssd.ssd_intra_chunk_cuda(*args)
+        torch.cuda.synchronize()
+        want = ssd.ssd_intra_chunk_plain(*args)
+    assert ssd.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["arrivals", "weights", "threshold"])
+def test_k1_wrapper_raises_where_a_gradient_is_wanted(cuda, name):
+    a, w, thr = tie_inputs(np.random.default_rng(1), 129, 9, cuda)
+    args = {"arrivals": a, "weights": w, "threshold": thr}
+    args[name] = args[name].clone().requires_grad_()
+    before = qc.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        qc.quorum_commit_cuda(args["arrivals"], args["weights"], args["threshold"])
+    assert qc.launches == before
+    with torch.no_grad():
+        got = qc.quorum_commit_cuda(args["arrivals"], args["weights"], args["threshold"],
+                                    members=True)
+        torch.cuda.synchronize()
+    assert qc.launches == before + 1
+    want = qc.quorum_commit_plain(a.cpu(), w.cpu(), thr.cpu(), members=True)
+    assert_equal_results(tuple(x.cpu() for x in got), want)

@@ -15,6 +15,13 @@ here, in plain torch, against the same limits the card holds them to:
   output row's error over the row's magnitude against float32 on the same
   bf16 inputs, it stays within twice the bf16 plain version's, the limit of
   ``hold_k2``.
+* K2's backward in bf16 recomputes P from the forward's log-sum-exp,
+  renormalises it (D = sum P dP / l and lse' = lse + ln l from a first walk
+  over the keys), and rounds dS and P to bf16 as the A operands of its
+  products. Each gradient's worst row error stays within twice the bf16
+  plain gradient's (or one bf16 ulp), the limit of ``hold_k2_backward``.
+  D taken from the bf16 output, or P left unrenormalised, misses that limit
+  on inputs pinned below, where the design holds.
 
 Products of TF32 values are exact in float32 (11 x 11 significant bits), so
 a float32 product of rounded operands emulates one tensor-core product; the
@@ -133,7 +140,8 @@ def test_k3_single_tf32_fails_the_float32_limit(B, nc, Q, nh, hp, N, xdtype):
 def flash_emulated(q, k, v, causal: bool):
     """K2's bf16 arithmetic: float32 scores of bf16 inputs, an online
     softmax over 64-key tiles, P rounded to bf16 for P V, l the sum of the
-    rounded P, float32 accumulators, the output rounded to bf16."""
+    rounded P, float32 accumulators, the output rounded to bf16. Returns the
+    output and each row's log-sum-exp m + ln l, (B,H,S)."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
     qf = q.float()
@@ -155,7 +163,7 @@ def flash_emulated(q, k, v, causal: bool):
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
     o = acc / l.clamp_min(1e-30)[..., None]
-    return o.transpose(1, 2).bfloat16()
+    return o.transpose(1, 2).bfloat16(), m + torch.log(l)
 
 
 def row_err(got, ref) -> float:
@@ -172,10 +180,107 @@ def test_k2_bf16_p_holds_the_row_limit(B, S, H, KV, hd):
                for n in (H, KV, KV))
     ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
     plain = row_err(fa.flash_attention_plain(q, k, v, causal=True), ref)
-    got = row_err(flash_emulated(q, k, v, causal=True), ref)
+    got = row_err(flash_emulated(q, k, v, causal=True)[0], ref)
     assert got <= 2 * plain, (got, plain)
     # bf16 P costs about one rounding of the output (2^-8), no more
     assert got < 4 * 2.0 ** -8, got
+
+
+# ---------------------------------------------------------------------------
+# K2's backward in bf16 (csrc/flash_attention_bwd.cu): products of bf16
+# operands are exact in float32; P is exp(s - lse) in float32; the D/dQ
+# kernel's first walk sums l = sum P and sum P dP and sets D = sum P dP / l,
+# lse' = lse + ln l; P from lse' then gives dS = P (dP - D), rounded to bf16
+# for dQ = scale dS K and dK = scale dS^T Q, and P rounded to bf16 for
+# dV = P^T dO; the gradients are rounded to bf16 once. The forward's lse is
+# the forward kernel's (l sums the bf16-rounded P). Two alternatives, which
+# the design replaced: D = rowsum(dO * o) from the bf16 output ("d_from_o",
+# P from the forward's lse), and P from the forward's lse with D = sum P dP
+# ("no_renorm").
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -8
+
+
+def flash_bwd_emulated(q, k, v, do, causal: bool, variant: str = "design"):
+    """(dq, dk, dv) in bf16 as K2's bf16 backward computes them (see above)."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    lse = flash_emulated(q, k, v, causal)[1]
+    kf, vf = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    scale = hd ** -0.5
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
+    if variant == "design":
+        l = p.sum(-1)
+        D = (p * dp).sum(-1) / l
+        p = torch.where(keep, torch.exp(s - (lse + torch.log(l))[..., None]), 0.0)
+    elif variant == "no_renorm":
+        D = (p * dp).sum(-1)
+    elif variant == "d_from_o":
+        o = fa.flash_attention_plain(q, k, v, causal=causal)     # bf16, as the forward's
+        D = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    else:
+        raise ValueError(variant)
+    ds = (p * (dp - D[..., None])).bfloat16().float()
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), do.float())
+    dk, dv = (t.reshape(B, S, H // G, G, hd).sum(3) for t in (dk, dv))
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def plain_grads(q, k, v, do, causal):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_plain(*leaves, causal=causal)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def grad_row_err(got, ref, scale) -> float:
+    """chip_smoke.grad_row_err: a row's largest error over its own largest
+    magnitude, or over 1e-3 of the gradients' largest magnitude."""
+    ref = ref.double()
+    diff = (got.double() - ref).abs().amax(-1)
+    return float((diff / ref.abs().amax(-1).clamp_min(scale * 1e-3)).max())
+
+
+def backward_over_limit(seed, B, S, H, KV, hd, causal, variant):
+    """Each of dq, dk, dv's worst row error over its limit, max(twice the
+    bf16 plain gradient's, one bf16 ulp): at most 1 holds the limit."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(np.float32)).bfloat16()
+                   for n in (H, KV, KV, H))
+    ref = plain_grads(q.float(), k.float(), v.float(), do.float(), causal)
+    plain = plain_grads(q, k, v, do, causal)
+    got = flash_bwd_emulated(q, k, v, do, causal, variant)
+    scale = max(float(r.abs().max()) for r in ref)
+    return [grad_row_err(g, r, scale) / max(2 * grad_row_err(w, r, scale), BF16_ULP)
+            for g, w, r in zip(got, plain, ref)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (2, 64, 4, 4, 16, True), (1, 256, 4, 2, 64, True), (1, 130, 8, 2, 128, True),
+    (2, 200, 4, 2, 128, False), (1, 1, 2, 2, 32, True), (2, 96, 2, 1, 64, False),
+    (1, 384, 4, 2, 16, False)])
+def test_k2_bf16_backward_holds_the_row_limit(B, S, H, KV, hd, causal):
+    over = backward_over_limit(S + hd, B, S, H, KV, hd, causal, "design")
+    assert max(over) <= 1.0, over
+
+
+# inputs on which an alternative misses the limit: dq's row error, where the
+# true dq is a small difference of large terms
+@pytest.mark.parametrize("variant,seed,B,S,H,KV,hd", [
+    ("d_from_o", 1, 1, 130, 8, 2, 128),
+    ("d_from_o", 3, 2, 64, 4, 4, 16),
+    ("no_renorm", 19, 2, 64, 4, 4, 16),
+    ("no_renorm", 0, 1, 64, 8, 2, 16)])
+def test_k2_backward_alternatives_miss_the_row_limit(variant, seed, B, S, H, KV, hd):
+    assert backward_over_limit(seed, B, S, H, KV, hd, True, variant)[0] > 1.0
+    assert max(backward_over_limit(seed, B, S, H, KV, hd, True, "design")) <= 1.0
 
 
 # ---------------------------------------------------------------------------

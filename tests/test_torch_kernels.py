@@ -6,8 +6,10 @@ Plain K1 runs against ``quorum_commit_pallas(..., interpret=True)`` as
 ``committed`` and ``commit_time`` exactly; ``quorum_size`` and ``weight_sum``
 only on tie-free inputs, because the Pallas bitonic network is unstable and
 orders tied votes differently. ``weight_sum`` at rtol 1e-6 (prefix sums taken
-in another order). The CUDA kernel itself is tested on a GPU by
-``tests/test_torch_cuda.py``.
+in another order). K1 has no backward kernel: its CUDA wrapper raises where a
+gradient is wanted, and the plain version keeps its gradient. The build is
+keyed by the hash of each source and of every shared header. The CUDA kernel
+itself is tested on a GPU by ``tests/test_torch_cuda.py``.
 """
 
 import pytest
@@ -95,6 +97,51 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     (tmp_path / "quorum_commit.cu").write_text("// another source\n")
     assert _build.library_path("quorum_commit").name != path.name
+
+
+def test_build_key_covers_every_header(tmp_path, monkeypatch):
+    """Editing a shared header (csrc/*.cuh) changes the key of every library,
+    so no library built against the old header is loaded."""
+    assert (_build.CSRC / "tc_bf16.cuh").is_file()
+    for p in _build.CSRC.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    names = _build.sources()
+    before = {name: _build.library_path(name).name for name in names}
+    header = tmp_path / "tc_bf16.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = {name: _build.library_path(name).name for name in names}
+    assert all(before[name] != after[name] for name in names), (before, after)
+    # a new header counts too
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(_build.library_path(name).name != after[name] for name in names)
+
+
+# K1 has no backward kernel: its CUDA wrapper raises where a gradient is
+# wanted, before it looks at the device; the plain version keeps its gradient.
+
+@pytest.mark.parametrize("which", ["arrivals", "weights", "threshold"])
+def test_k1_wrapper_raises_where_a_gradient_is_wanted(which):
+    a, w = (torch.from_numpy(x) for x in random_inputs(np.random.default_rng(3), 20, 5, False))
+    args = {"arrivals": a, "weights": w, "threshold": w.sum(-1) / 2}
+    args[which] = args[which].clone().requires_grad_()
+    before = qc.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        qc.quorum_commit_cuda(args["arrivals"], args["weights"], args["threshold"])
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        qc.quorum_commit_cuda(args["arrivals"], args["weights"], args["threshold"])
+    assert qc.launches == before
+
+
+def test_plain_k1_keeps_the_weight_sums_gradient():
+    """On the CPU weight_sum is differentiable in the weights: its gradient is
+    1 for each member of the quorum and 0 elsewhere."""
+    a, w = (torch.from_numpy(x) for x in random_inputs(np.random.default_rng(4), 64, 9, False))
+    w.requires_grad_()
+    _, _, committed, weight_sum, members = qc.quorum_commit(a, w, members=True)
+    assert committed.any() and not committed.all()
+    weight_sum.sum().backward()
+    assert torch.equal(w.grad, members.float())
 
 
 def test_build_raises_without_nvcc_or_on_a_failed_compile(tmp_path, monkeypatch):

@@ -8,6 +8,10 @@
   ``tests/test_kernels.py`` (SSD scan), at 2e-3 as there.
 * A step ``dt·A`` large enough that ``exp`` overflows above the diagonal:
   no NaN.
+* K3 has no backward kernel yet: its CUDA wrapper raises
+  ``NotImplementedError`` where a gradient is wanted, before its device
+  check, and the plain scan's CPU gradient equals ``jax.grad`` of the JAX
+  model's ``ssd_chunked``.
 The CUDA kernel is tested on a GPU by ``tests/test_torch_cuda.py``.
 """
 
@@ -15,6 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -160,3 +165,55 @@ def test_cpu_tensors_run_the_plain_version_and_the_wrapper_checks():
     with pytest.raises(ValueError, match="multiple of the chunk"):
         x, dt, A, Bm, Cm = (torch.from_numpy(a) for a in inputs(1, 1, 48, 1, 4, 4))
         ops.ssd(x, dt, A, Bm, Cm, torch.ones(1), 32)
+
+
+# ---------------------------------------------------------------------------
+# K3 has no backward kernel yet: its CUDA wrapper raises where a gradient is
+# wanted (before it looks at the device), launches under no_grad, and the
+# plain version on the CPU keeps its full gradient.
+# ---------------------------------------------------------------------------
+
+K3_INPUTS = ("x", "dt", "seg", "Bm", "Cm")
+
+
+@pytest.mark.parametrize("name", K3_INPUTS)
+def test_k3_wrapper_raises_where_a_gradient_is_wanted(name):
+    args = [torch.from_numpy(a) for a in chunk(*inputs(11, 1, 64, 2, 8, 4), 32)]
+    i = K3_INPUTS.index(name)
+    args[i] = args[i].clone().requires_grad_()
+    before = ssd.launches
+    with pytest.raises(NotImplementedError, match="K3's backward"):
+        ssd.ssd_intra_chunk_cuda(*args)
+    # without grad mode the gradient is not wanted: the wrapper goes on to its
+    # device check, which a CPU tensor fails
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx(), pytest.raises(ValueError, match="CUDA"):
+            ssd.ssd_intra_chunk_cuda(*args)
+    assert ssd.launches == before
+
+
+@pytest.mark.parametrize("name", ("x", "dt", "A", "Bm", "Cm", "D"))
+def test_plain_ssd_keeps_its_full_gradient_on_the_cpu(name):
+    """ops.ssd on CPU tensors is differentiable through the plain intra-chunk
+    block: the gradient of a weighted sum of y and the final state with
+    respect to each input equals jax.grad of repro.models.mamba2.ssd_chunked
+    (float32, 2e-3 of the gradient's largest magnitude, as the forward)."""
+    arrays = dict(zip(("x", "dt", "A", "Bm", "Cm"), inputs(13, 1, 64, 2, 8, 4)))
+    arrays["D"] = np.full(2, 0.5, np.float32)
+    order = ("x", "dt", "A", "Bm", "Cm", "D")
+    rng = np.random.default_rng(14)
+    wy = rng.normal(size=(1, 64, 2, 8)).astype(np.float32)
+    ws = rng.normal(size=(1, 2, 8, 4)).astype(np.float32)
+
+    def jloss(*a):
+        y, s = JM.ssd_chunked(*a, 32)
+        return jnp.sum(y * wy) + jnp.sum(s * ws)
+
+    want = jax.grad(jloss, argnums=order.index(name))(*(jnp.asarray(arrays[k]) for k in order))
+    leaves = [torch.from_numpy(arrays[k]).requires_grad_(k == name) for k in order]
+    y, s = ops.ssd(*leaves, 32)
+    ((y * torch.from_numpy(wy)).sum() + (s * torch.from_numpy(ws)).sum()).backward()
+    got = leaves[order.index(name)].grad
+    assert got is not None and got.abs().max() > 0
+    scale = float(np.abs(np.asarray(want)).max())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3 * scale, rtol=2e-3)
