@@ -2,11 +2,12 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
 drives the weighted-quorum data plane, zamba2-1.2b serving, qwen3-1.7b
-serving and qwen3-1.7b training at full size, and times them.
+serving, and qwen3-1.7b and zamba2-1.2b training at full size, and times
+them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--train-steps N]
 
 Phases, each of which raises on failure so that the script exits non-zero:
   1. the card's name and power limit (nvidia-smi), and the kernel build (one
@@ -29,10 +30,12 @@ Phases, each of which raises on failure so that the script exits non-zero:
      for the device, as long as a weights phase;
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
      versions on the card, ragged edges of their tensor-core tiles included;
-     K3 raising NotImplementedError, with no launch, where any of x, dt, A,
-     Bm, Cm requires a gradient (it has no backward kernel yet), and
-     launching once under no_grad; and the smoke zamba2 (float32) served on
-     the card against the same on the CPU;
+     K3's backward kernel against its closed-form plain version on the same
+     cases, and a gradient of ``ssd_chunked`` with any of x, dt, A, Bm, Cm
+     requiring one launching K3 once and its backward exactly once, equal
+     to the plain scan's gradient (under no_grad: K3 once, no backward);
+     and the smoke zamba2 (float32) served on the card against the same on
+     the CPU;
   5. the serving main path: zamba2-1.2b at full width and depth (bf16,
      random weights from --seed), 8 prompts of 2048 tokens, then 32 greedy
      decode steps; K3 must launch 38 times and K2 6 times in the prefill and
@@ -48,10 +51,15 @@ Phases, each of which raises on failure so that the script exits non-zero:
      saved from the card and restored bit for bit;
   8. the dense serving path, as in 5 for qwen3-1.7b at full width and
      depth: K2 must launch 28 times in the prefill and not in decode;
-  9. the training path: qwen3-1.7b at full width and depth, 5 steps of 8 x
-     2048 tokens from the port's data pipeline through
+  9. the smoke zamba2 and mamba2 (float32), 2 train steps each on the card
+     against the CPU as in 7; then the training paths: qwen3-1.7b, then
+     zamba2-1.2b, at full width and depth, 5 steps (``--train-steps``) of
+     8 x 2048 tokens from the port's data pipeline through
      ``launch.train.make_train_step`` (2 microbatches, remat, float32
-     moments); K2's backward must launch 56 times a step;
+     moments); a qwen3 step must launch K2's backward 56 times, a zamba2
+     step K3's backward 76 times, K3 152, K2's backward 12 and K2 24; each
+     step with its garbage collections, allocator calls and retries, and
+     the card's clock, power and throttle reasons beside it;
  10. kernel times beside the plain version's, the bound and the library's,
      as one JSON line {"kernels": [...]}: the kernel's device time
      (torch.profiler), the time per call through the wrapper and of the plain
@@ -63,12 +71,15 @@ Phases, each of which raises on failure so that the script exits non-zero:
 from __future__ import annotations
 
 import argparse
+import ctypes
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -133,6 +144,12 @@ TRAIN_STEPS = 5
 TRAIN_TOTAL_STEPS = 10_000          # the schedule's length (the JAX default)
 SMALL_TRAIN_STEPS = (200, 201)      # full learning rate in a 300-step schedule
 K2_TRAIN_SHAPE = (4, 2048, 16, 8, 128)   # one microbatch of qwen3-1.7b
+# zamba2-1.2b training: the same traffic; one microbatch's K3 shape, and
+# the peak device memory a step may take (parameters, gradients, float32
+# accumulator and moments ~19 GB, plus activations under remat)
+HYBRID_ARCH = "zamba2-1.2b"
+K3_TRAIN_SHAPE = (4, 16, 128, 64, 64, 64)   # B, nc, Q, nh, hp, N; x bf16
+HYBRID_TRAIN_PEAK_GIB = 40.0
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -640,6 +657,19 @@ def row_err(got, ref) -> float:
     return float((diff / ref.double().abs().amax(-1).clamp_min(1e-30)).max())
 
 
+def hold_bf16_rows(errors, what, name, got, want, ref, err) -> None:
+    """The backward kernels' bf16 rule: against the plain version run in
+    float32 on the same bf16 inputs (``ref``), the kernel's largest row
+    error ``err(got, ref)`` may be at most twice the bf16 plain version's
+    ``err(want, ref)``, or one bf16 ulp (2^-8, the output's own rounding)
+    where that is larger. Records both errors in ``errors``."""
+    errors[f"{name}_row_rel_err"] = got_err = err(got, ref)
+    errors[f"{name}_plain_row_rel_err"] = plain_err = err(want, ref)
+    if not got_err <= max(2 * plain_err, 2.0 ** -8):
+        raise AssertionError(f"{what} {name} in bf16 is farther from float32, row by "
+                             f"row, than twice the plain version: {errors}")
+
+
 def hold_k2(got, q, k, v, causal) -> dict:
     """K2's output held against its plain version on the same inputs. float32
     at atol/rtol 1e-4. bfloat16 at 2e-2, which is a large part of a late
@@ -695,8 +725,38 @@ def hold_k3(got, args) -> list:
     return errs
 
 
+def ssd_output_grads(gen, B, nc, Q_, nh, hp, N):
+    """Gradients of K3's three outputs, y, state and decay."""
+    return [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((B, nc, Q_, nh, hp), (B, nc, nh, hp, N), (B, nc, nh))]
+
+
+def hold_k3_backward(got, args, grads) -> dict:
+    """K3's backward held against its closed-form plain version on the same
+    inputs: the float32 gradients (ddt, dseg, dB, dC, and dx for a float32
+    x) at atol/rtol 1e-4, the forward's contract; a bf16 dx by
+    :func:`hold_bf16_rows` against the plain version run with x in float32
+    (the same bf16 values). Returns the errors."""
+    want = ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+    errors = {}
+    for name, g, w in zip(("dx", "ddt", "dseg", "dB", "dC"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"K3 backward {name}: {g.dtype}{tuple(g.shape)} vs "
+                                 f"{w.dtype}{tuple(w.shape)}, or not finite")
+        errors[f"{name}_max_abs_err"] = max_err(g, w)
+        if g.dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"K3 backward {name}: {m}")
+    if args[0].dtype == torch.bfloat16:
+        ref = ssd.ssd_intra_chunk_bwd_plain(args[0].float(), *args[1:], *grads)[0]
+        hold_bf16_rows(errors, "K3 backward", "dx", got[0], want[0], ref, row_err)
+    return errors
+
+
 def check_k3(gen) -> dict:
-    """K3 against its plain version on the card at atol/rtol 1e-4."""
+    """K3 and its backward against their plain versions on the card (1e-4,
+    and a bf16 dx by :func:`hold_k3_backward`'s row rule), and the gradient
+    of ``ssd_chunked`` through both kernels."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [((2, 16, 128, 64, 64, 64), bf16),      # zamba2 prefill, B 2
              ((1, 4, 128, 48, 64, 128), bf16),      # mamba2-780m, N 128
@@ -707,44 +767,77 @@ def check_k3(gen) -> dict:
              # a multiple of 16 bytes (loaded without cp.async)
              ((1, 1, 33, 3, 12, 20), f32),
              ((1, 1, 33, 3, 12, 20), bf16),
-             ((2, 1, 16, 16, 8, 4), bf16)]
-    errors = {}
+             ((2, 1, 16, 16, 8, 4), bf16),
+             ((0, 2, 32, 4, 8, 4), bf16)]           # B * nc = 0: nothing to launch
+    errors, bwd_errors = {}, {}
     for shape, xdtype in cases:
         args = ssd_inputs(gen, *shape, xdtype=xdtype)
+        grads = ssd_output_grads(gen, *shape)
+        launched = (ssd.launches, ssd.bwd_launches)
         got = ssd.ssd_intra_chunk_cuda(*args)
+        got_bwd = ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
         torch.cuda.synchronize()
-        errors[f"{shape} x {str(xdtype)[6:]}"] = hold_k3(got, args)
+        want_launched = (launched[0] + 1, launched[1] + 1) if shape[0] * shape[1] else launched
+        if (ssd.launches, ssd.bwd_launches) != want_launched:
+            raise AssertionError(f"K3 {shape}: launches {launched} -> "
+                                 f"{(ssd.launches, ssd.bwd_launches)}")
+        key = f"{shape} x {str(xdtype)[6:]}"
+        if not shape[0] * shape[1]:
+            want = ssd.ssd_intra_chunk_plain(*args) + ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+            if [t.shape for t in got + got_bwd] != [t.shape for t in want]:
+                raise AssertionError(f"K3 {key}: output shapes differ from the plain version's")
+            continue
+        errors[key] = hold_k3(got, args)
+        bwd_errors[key] = hold_k3_backward(got_bwd, args, grads)
+        again = ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
+        if not all(torch.equal(a, b) for a, b in zip(got_bwd, again)):
+            raise AssertionError(f"K3 backward {key}: two runs differ")
     print(f"K3 vs plain on the card, max abs error (y, state, decay): "
           f"{json.dumps(errors)}")
+    print(f"K3 backward vs plain on the card: {json.dumps(bwd_errors)}")
 
-    # K3 has no backward kernel yet: ssd_chunked (mixer_forward's call) with
-    # any of x, dt, A, Bm, Cm requiring a gradient raises before a launch;
-    # the same inputs under no_grad launch K3 once and agree with the plain
-    # scan (1e-3: K3's 1e-4 carried through the inter-chunk recurrence)
+    # a gradient of ssd_chunked (mixer_forward's call) with respect to any of
+    # x, dt, A, Bm, Cm launches K3 once and its backward exactly once, and
+    # equals the plain scan's (1e-3: K3's 1e-4 carried through the
+    # inter-chunk recurrence); under no_grad K3 launches once, no backward
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     S_, nh, hp, N, chunk = 256, 4, 64, 64, 128
     inputs = {"x": randn(1, S_, nh, hp), "dt": torch.nn.functional.softplus(randn(1, S_, nh) - 2.0),
               "A": -torch.exp(0.5 * randn(nh)), "Bm": randn(1, S_, N), "Cm": randn(1, S_, N)}
     D = torch.ones(nh, device="cuda")
+    wy, ws = randn(1, S_, nh, hp), randn(1, nh, hp, N)
+    grad_errors = {}
     for name in inputs:
         args = dict(inputs)
         args[name] = args[name].clone().requires_grad_()
-        call = lambda: ssd.ssd_chunked(*args.values(), D, chunk)  # noqa: E731
-        hold_grad_raise(call, lambda: ssd.launches, f"K3 with {name} requiring a gradient")
-        before = ssd.launches
+        before = (ssd.launches, ssd.bwd_launches)
+        y, s = ssd.ssd_chunked(*args.values(), D, chunk)
+        (got,) = torch.autograd.grad((y * wy).sum() + (s * ws).sum(), [args[name]])
+        torch.cuda.synchronize()
+        if (ssd.launches, ssd.bwd_launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"the gradient of ssd_chunked in {name} launched "
+                                 f"{(ssd.launches - before[0], ssd.bwd_launches - before[1])}"
+                                 f" (K3, its backward), expected (1, 1)")
+        y, s = ssd.ssd_chunked_plain(*args.values(), D, chunk)
+        (want,) = torch.autograd.grad((y * wy).sum() + (s * ws).sum(), [args[name]])
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=1e-3,
+                                   msg=lambda m: f"ssd_chunked gradient in {name}: {m}")
+        grad_errors[name] = max_err(got, want) / scale
         with torch.no_grad():
-            got = call()
+            got = ssd.ssd_chunked(*args.values(), D, chunk)
             torch.cuda.synchronize()
             want = ssd.ssd_chunked_plain(*args.values(), D, chunk)
-        if ssd.launches != before + 1:
-            raise AssertionError(f"K3 under no_grad with {name} requiring a gradient "
-                                 f"launched {ssd.launches - before} times, expected 1")
+        if (ssd.launches, ssd.bwd_launches) != (before[0] + 2, before[1] + 1):
+            raise AssertionError(f"ssd_chunked under no_grad with {name} requiring a "
+                                 f"gradient launched other than K3 once")
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
-    print("K3 raises NotImplementedError, launching nothing, for x, dt, A, Bm or Cm "
-          "requiring a gradient; under no_grad it launches once and agrees")
-    return errors
+    print(f"a gradient of ssd_chunked in x, dt, A, Bm or Cm launches K3 and its backward "
+          f"once each and equals the plain scan's (max error over the largest "
+          f"magnitude: {json.dumps(grad_errors)}); under no_grad K3 launches once")
+    return {"forward": errors, "backward": bwd_errors, "ssd_chunked_grad": grad_errors}
 
 
 def serve_run(cfg, params, tokens, decode_steps, cache_len):
@@ -843,11 +936,12 @@ def profile_device(fn, watch=()) -> dict:
 
 def launch_counts() -> dict:
     return {"quorum_commit": qc.launches, "flash_attention": fa.launches,
-            "flash_attention_bwd": fa.bwd_launches, "ssd_scan": ssd.launches}
+            "flash_attention_bwd": fa.bwd_launches, "ssd_scan": ssd.launches,
+            "ssd_scan_bwd": ssd.bwd_launches}
 
 
 def reset_launch_counts() -> None:
-    qc.launches = fa.launches = fa.bwd_launches = ssd.launches = 0
+    qc.launches = fa.launches = fa.bwd_launches = ssd.launches = ssd.bwd_launches = 0
 
 
 def serving_path(arch, seed, name) -> dict:
@@ -878,7 +972,7 @@ def serving_path(arch, seed, name) -> dict:
     torch.cuda.synchronize()
     ttft_s = time.perf_counter() - t0
     prefill_launches = launch_counts()
-    want = {"quorum_commit": 0, "flash_attention_bwd": 0,
+    want = {"quorum_commit": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
             "flash_attention": fam.n_shared(cfg) if hybrid else cfg.n_layers,
             "ssd_scan": cfg.n_layers if hybrid else 0}
     if prefill_launches != want:
@@ -969,11 +1063,10 @@ def grad_row_err(got, ref, scale) -> float:
 def hold_k2_backward(got, q, k, v, do, causal) -> dict:
     """K2's backward held against the plain version's autograd gradient on
     the same inputs. float32 at atol/rtol 1e-4, the forward's contract.
-    bfloat16 row by row against the plain gradient run in float32 on the
-    same bf16 inputs: each gradient's largest row error may be at most twice
-    the bf16 plain gradient's, or one bf16 ulp (2^-8, the output's own
-    rounding) where that is larger, as at S = 1, where the plain version
-    computes the zero dq and dk exactly. Returns the errors."""
+    bfloat16 by :func:`hold_bf16_rows` against the plain gradient run in
+    float32 on the same bf16 inputs, with rows measured by
+    :func:`grad_row_err` (the ulp floor holds at S = 1, where the plain
+    version computes the zero dq and dk exactly). Returns the errors."""
     want = plain_grads(q, k, v, do, causal)
     errors = {}
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
@@ -988,13 +1081,8 @@ def hold_k2_backward(got, q, k, v, do, causal) -> dict:
         ref = plain_grads(q.float(), k.float(), v.float(), do.float(), causal)
         scale = max(float(r.abs().max()) for r in ref)
         for g, w, r, name in zip(got, want, ref, ("dq", "dk", "dv")):
-            errors[f"{name}_row_rel_err"] = grad_row_err(g, r, scale)
-            errors[f"{name}_plain_row_rel_err"] = grad_row_err(w, r, scale)
-            if not errors[f"{name}_row_rel_err"] <= max(
-                    2 * errors[f"{name}_plain_row_rel_err"], 2.0 ** -8):
-                raise AssertionError(f"K2 backward {name} in bf16 is farther from "
-                                     f"float32, row by row, than twice the plain "
-                                     f"gradient: {errors}")
+            hold_bf16_rows(errors, "K2 backward", name, g, w, r,
+                           lambda a, b: grad_row_err(a, b, scale))
     return errors
 
 
@@ -1003,6 +1091,7 @@ def check_k2_backward(gen) -> dict:
     card, and ``layers.attend`` differentiable through them."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(K2_TRAIN_SHAPE, bf16, True),                 # qwen3-1.7b training
+             ((4, 2048, 32, 32, 64), bf16, True),          # zamba2-1.2b training
              ((1, 512, 16, 8, 128), f32, True)]
     cases += [((1, 256, 4, 2, hd), dt, True) for hd in (16, 32, 64, 128) for dt in (f32, bf16)]
     cases += [((2, 200, 4, 4, 64), dt, True) for dt in (f32, bf16)]     # ratio 1, ragged
@@ -1061,6 +1150,37 @@ def assert_trees_close(got, want, what, atol=1e-4, rtol=1e-4) -> float:
     return err
 
 
+def small_train_steps(cfg, params, seed, what):
+    """SMALL_TRAIN_STEPS train steps of ``cfg`` from the CPU ``params`` on
+    the CPU and on the card: loss, grad_norm and lr at 1e-4, the updated
+    parameters and moments at atol/rtol 1e-4. Returns the card's
+    (params, opt_state) and the errors."""
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=4, seed=seed)
+    trained = {}
+    for device in ("cpu", "cuda"):
+        p = L.tree_map(lambda t: t.to(device, copy=True), params)
+        o = adamw.init(p, opt_cfg)
+        step_fn = train.make_train_step(cfg, opt_cfg, total_steps=300)
+        metrics = []
+        for step in SMALL_TRAIN_STEPS:
+            p, o, m = step_fn(p, o, train.batch_to(host_batch(dcfg, step, 0, 1), device), step)
+            metrics.append({k: float(v) for k, v in m.items()})
+        trained[device] = (p, o, metrics)
+    torch.cuda.synchronize()
+    for got, want in zip(trained["cuda"][2], trained["cpu"][2]):
+        for k in ("loss", "grad_norm", "lr"):
+            if not math.isclose(got[k], want[k], rel_tol=1e-4, abs_tol=1e-4):
+                raise AssertionError(f"{what} train step {k}: card {got[k]} CPU {want[k]}")
+    (p, o, metrics), (cp, co, _) = trained["cuda"], trained["cpu"]
+    return (p, o), {
+        "train_metrics": metrics,
+        "params_max_abs_err": assert_trees_close(p, cp, f"{what} train params"),
+        "moments_max_abs_err": assert_trees_close({"m": o["m"], "v": o["v"]},
+                                                  {"m": co["m"], "v": co["v"]},
+                                                  f"{what} train moments")}
+
+
 def check_small_dense(seed) -> dict:
     """The smoke qwen3-1.7b in float32 on the card against the CPU: prefill
     and decode logits at atol/rtol 1e-4 with equal greedy tokens; 2 train
@@ -1092,34 +1212,12 @@ def check_small_dense(seed) -> dict:
         if not torch.equal(g.cpu(), w):
             raise AssertionError(f"dense greedy tokens differ at decode step {step}")
 
-    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
-    dcfg = DataConfig(vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=4, seed=seed)
-    trained = {}
-    for device in ("cpu", "cuda"):
-        p = L.tree_map(lambda t: t.to(device, copy=True), params)
-        o = adamw.init(p, opt_cfg)
-        step_fn = train.make_train_step(cfg, opt_cfg, total_steps=300)
-        metrics = []
-        for step in SMALL_TRAIN_STEPS:
-            p, o, m = step_fn(p, o, train.batch_to(host_batch(dcfg, step, 0, 1), device), step)
-            metrics.append({k: float(v) for k, v in m.items()})
-        trained[device] = (p, o, metrics)
-    torch.cuda.synchronize()
+    (p, o), errors = small_train_steps(cfg, params, seed, "dense")
     if fa.bwd_launches - bwd != cfg.microbatches * len(SMALL_TRAIN_STEPS) * cfg.n_layers:
         raise AssertionError(f"the smoke train steps launched K2's backward "
                              f"{fa.bwd_launches - bwd} times")
-    for got, want in zip(trained["cuda"][2], trained["cpu"][2]):
-        for k in ("loss", "grad_norm", "lr"):
-            if not math.isclose(got[k], want[k], rel_tol=1e-4, abs_tol=1e-4):
-                raise AssertionError(f"dense train step {k}: card {got[k]} CPU {want[k]}")
-    out["train_metrics"] = trained["cuda"][2]
-    out["params_max_abs_err"] = assert_trees_close(trained["cuda"][0], trained["cpu"][0],
-                                                   "dense train params")
-    out["moments_max_abs_err"] = assert_trees_close(
-        {"m": trained["cuda"][1]["m"], "v": trained["cuda"][1]["v"]},
-        {"m": trained["cpu"][1]["m"], "v": trained["cpu"][1]["v"]}, "dense train moments")
+    out.update(errors)
 
-    p, o, _ = trained["cuda"]
     build = Path(__file__).resolve().parent / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as d:
@@ -1138,12 +1236,146 @@ def check_small_dense(seed) -> dict:
     return out
 
 
-def training_path(seed) -> dict:
-    """qwen3-1.7b at full width and depth: TRAIN_STEPS steps of TRAIN_BATCH x
+def check_small_ssm_training(seed) -> dict:
+    """The smoke zamba2 and mamba2 in float32 (2 microbatches, remat), held
+    as :func:`small_train_steps` holds them, card against CPU; K3's
+    backward must launch once a layer a microbatch on the card."""
+    out = {}
+    for arch in (HYBRID_ARCH, "mamba2-780m"):
+        cfg = dataclasses.replace(configs.smoke(arch), param_dtype="float32",
+                                  compute_dtype="float32", microbatches=2, remat=True)
+        params = family(cfg).init_params(cfg, torch.Generator("cpu").manual_seed(seed),
+                                         device="cpu")
+        bwd = ssd.bwd_launches
+        _, out[arch] = small_train_steps(cfg, params, seed, arch)
+        want = cfg.n_layers * cfg.microbatches * len(SMALL_TRAIN_STEPS)
+        if ssd.bwd_launches - bwd != want:
+            raise AssertionError(f"the smoke {arch} train steps launched K3's backward "
+                                 f"{ssd.bwd_launches - bwd} times, expected {want}")
+        print(f"smoke {arch} (float32): {len(SMALL_TRAIN_STEPS)} train steps, card equals "
+              f"CPU (params {out[arch]['params_max_abs_err']!r}), K3's backward "
+              f"launched {want} times")
+    return out
+
+
+def expected_train_launches(cfg) -> dict:
+    """The kernels' launches in one train step of ``cfg``: each backward once
+    a layer a microbatch, each forward twice under remat (the loss, then the
+    recompute in the backward)."""
+    M = cfg.microbatches
+    forward = 2 if cfg.remat else 1
+    if cfg.family == "hybrid":
+        attn, ssm = cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    else:
+        attn, ssm = cfg.n_layers, 0
+    return {"quorum_commit": 0, "flash_attention": forward * attn * M,
+            "flash_attention_bwd": attn * M, "ssd_scan": forward * ssm * M,
+            "ssd_scan_bwd": ssm * M}
+
+
+def nvml_reader():
+    """A function that reads the card's SM clock (MHz), power draw (W) and
+    clock throttle reasons (NVML's bitmask) through NVML, or None where NVML
+    cannot be loaded. Device 0: the script runs on one card."""
+    try:
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return None
+    out = ctypes.POINTER
+    for fn, args in (("nvmlInit_v2", []),
+                     ("nvmlDeviceGetHandleByIndex_v2", [ctypes.c_uint, out(ctypes.c_void_p)]),
+                     ("nvmlDeviceGetClockInfo",
+                      [ctypes.c_void_p, ctypes.c_int, out(ctypes.c_uint)]),
+                     ("nvmlDeviceGetPowerUsage", [ctypes.c_void_p, out(ctypes.c_uint)]),
+                     ("nvmlDeviceGetCurrentClocksThrottleReasons",
+                      [ctypes.c_void_p, out(ctypes.c_ulonglong)])):
+        getattr(nvml, fn).argtypes, getattr(nvml, fn).restype = args, ctypes.c_int
+    handle = ctypes.c_void_p()
+    if nvml.nvmlInit_v2() != 0 or nvml.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle)):
+        return None
+
+    def read():
+        mhz, mw, reasons = ctypes.c_uint(), ctypes.c_uint(), ctypes.c_ulonglong()
+        nvml.nvmlDeviceGetClockInfo(handle, 1, ctypes.byref(mhz))       # NVML_CLOCK_SM
+        nvml.nvmlDeviceGetPowerUsage(handle, ctypes.byref(mw))
+        nvml.nvmlDeviceGetCurrentClocksThrottleReasons(handle, ctypes.byref(reasons))
+        return mhz.value, mw.value / 1e3, reasons.value
+    return read
+
+
+class StepProbe:
+    """What a timed step shares its wall time with: Python's garbage
+    collections (time, and full collections), the caching allocator's
+    cudaMalloc and cudaFree calls and its retries (a retry frees every
+    cached block, which synchronises the card, and allocates again), the
+    memory it holds, and the card's SM clock, power and throttle reasons,
+    sampled through NVML every SAMPLE_S by a thread that ``__exit__`` stops."""
+    SAMPLE_S = 0.02
+    ALLOC_KEYS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
+
+    def __enter__(self):
+        self.gc_s, self.gc_full, self._gc_t0 = 0.0, 0, None
+        gc.callbacks.append(self._on_gc)
+        self.samples, self._stop, self._read = [], threading.Event(), nvml_reader()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        if self._read is not None:
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on_gc)
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join()
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gc_s += time.perf_counter() - self._gc_t0
+            self.gc_full += info["generation"] == 2
+
+    def _sample(self):
+        while not self._stop.wait(self.SAMPLE_S):
+            self.samples.append((time.perf_counter(), *self._read()))
+
+    def _alloc(self):
+        stats = torch.cuda.memory_stats()
+        return {k: stats.get(k, 0) for k in self.ALLOC_KEYS}
+
+    def begin(self):
+        self._begin = (time.perf_counter(), self.gc_s, self.gc_full, self._alloc())
+
+    def end(self) -> dict:
+        t0, gc_s, gc_full, alloc = self._begin
+        now = self._alloc()
+        rec = {"gc_s": self.gc_s - gc_s, "gc_full": self.gc_full - gc_full,
+               **{k: now[k] - alloc[k] for k in self.ALLOC_KEYS},
+               "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+        within = [smp[1:] for smp in self.samples if smp[0] >= t0]
+        if within:
+            mhz = [m for m, _, _ in within]
+            reasons = 0
+            for _, _, r in within:
+                reasons |= r
+            rec.update(sm_mhz_min=min(mhz), sm_mhz_mean=float(np.mean(mhz)),
+                       power_w_max=max(w for _, w, _ in within),
+                       throttle_reasons=hex(reasons), samples=len(within))
+        else:
+            rec["sm_mhz_min"] = "not sampled"
+        return rec
+
+
+def training_path(arch, name, seed, n_steps=TRAIN_STEPS) -> dict:
+    """``arch`` at full width and depth: ``n_steps`` steps of TRAIN_BATCH x
     TRAIN_SEQ tokens from the port's data pipeline, through
     ``launch.train.make_train_step`` (the configuration's 2 microbatches,
-    remat, bf16 parameters, float32 moments), then one profiled step."""
-    cfg = configs.get(DENSE_ARCH)
+    remat, bf16 parameters, float32 moments), each with what
+    :class:`StepProbe` sees in it, then one profiled step. Each step must
+    launch the kernels :func:`expected_train_launches` counts. The step time
+    is given as the mean and the median of the steps after the first; steps
+    25% above that median are listed as slow."""
+    cfg = configs.get(arch)
     fam = family(cfg)
     t0 = time.perf_counter()
     params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
@@ -1153,37 +1385,39 @@ def training_path(seed) -> dict:
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    per_step = cfg.n_layers * cfg.microbatches             # K2 backward launches a step
+    per_step = expected_train_launches(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = 6 * cfg.param_count() * tokens
 
     steps = []
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    for step in range(TRAIN_STEPS):
-        batch = train.batch_to(host_batch(dcfg, step, 0, 1), "cuda")
-        bwd_before = fa.bwd_launches
-        t0 = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch, step)
-        torch.cuda.synchronize()
-        took = time.perf_counter() - t0
-        rec = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-               "lr": float(m["lr"]), "step_s": took,
-               "k2_bwd_launches": fa.bwd_launches - bwd_before}
-        steps.append(rec)
-        print(f"train step {step}: loss {rec['loss']:.4f} grad_norm {rec['grad_norm']:.4f} "
-              f"{took:.3f} s")
-        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
-            raise AssertionError(f"train step {step}: loss or grad_norm not finite: {rec}")
-        if rec["k2_bwd_launches"] != per_step:
-            raise AssertionError(f"train step {step} launched K2's backward "
-                                 f"{rec['k2_bwd_launches']} times, expected {per_step}")
+    with StepProbe() as probe:
+        for step in range(n_steps):
+            batch = train.batch_to(host_batch(dcfg, step, 0, 1), "cuda")
+            before = launch_counts()
+            probe.begin()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch, step)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            seen = probe.end()
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            rec = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "lr": float(m["lr"]), "step_s": took, "launches": launched, **seen}
+            steps.append(rec)
+            print(f"{cfg.name} train step {step}: loss {rec['loss']:.4f} grad_norm "
+                  f"{rec['grad_norm']:.4f} {took:.3f} s; {json.dumps(seen)}")
+            if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+                raise AssertionError(f"train step {step}: loss or grad_norm not finite: {rec}")
+            if launched != per_step:
+                raise AssertionError(f"{cfg.name} train step {step} launched {launched}, "
+                                     f"expected {per_step}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {"flash_attention": fa.launches, "flash_attention_bwd": fa.bwd_launches}
-    # remat runs each layer's forward twice: once in the loss, once in backward
-    if launches["flash_attention"] != 2 * per_step * TRAIN_STEPS:
-        raise AssertionError(f"training launched K2 {launches['flash_attention']} times, "
-                             f"expected {2 * per_step * TRAIN_STEPS}")
+    launches = launch_counts()
+    if cfg.family == "hybrid" and not peak <= HYBRID_TRAIN_PEAK_GIB:
+        raise AssertionError(f"{cfg.name} training peaked at {peak:.2f} GiB, above "
+                             f"{HYBRID_TRAIN_PEAK_GIB}")
     ln_vocab = math.log(cfg.vocab)
     if abs(steps[0]["loss"] - ln_vocab) > 0.5:
         raise AssertionError(f"first loss {steps[0]['loss']} is not within 0.5 of "
@@ -1191,33 +1425,38 @@ def training_path(seed) -> dict:
     if not all(torch.isfinite(t).all() for t in tree_leaves(params)):
         raise AssertionError("trained parameters not finite")
     steady = [s["step_s"] for s in steps[1:]]
-    step_s = float(np.mean(steady))
+    step_s, median_s = float(np.mean(steady)), float(np.median(steady))
+    slow = [s for s in steps[1:] if s["step_s"] > 1.25 * median_s]
 
-    batch = train.batch_to(host_batch(dcfg, TRAIN_STEPS, 0, 1), "cuda")
-    profile = profile_device(lambda: step_fn(params, opt_state, batch, TRAIN_STEPS),
+    batch = train.batch_to(host_batch(dcfg, n_steps, 0, 1), "cuda")
+    profile = profile_device(lambda: step_fn(params, opt_state, batch, n_steps),
                              watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_bf16_kernel",
-                                    "attn_bwd_dq_bf16_kernel"))
+                                    "attn_bwd_dq_bf16_kernel", "ssd_intra_chunk_kernel",
+                                    "ssd_bwd_heads_kernel", "ssd_bwd_bc_kernel"))
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
         "moment_dtype": cfg.opt_state_dtype, "microbatches": cfg.microbatches,
         "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "tokens_per_step": tokens, "setup_s": setup_s, "steps": steps,
-        "step_s_mean_after_first": step_s, "tokens_per_s": tokens / step_s,
+        "step_s_mean_after_first": step_s, "step_s_median_after_first": median_s,
+        "slow_steps": [s["step"] for s in slow],
+        "gc_s_after_first": sum(s["gc_s"] for s in steps[1:]), "tokens_per_s": tokens / step_s,
+        "tokens_per_s_at_median": tokens / median_s,
         "first_step_s": steps[0]["step_s"], "ln_vocab": ln_vocab,
-        "peak_mem_gib": peak, "launches": launches,
-        "k2_bwd_launches_per_step": per_step,
+        "peak_mem_gib": peak, "launches": launches, "launches_per_step": per_step,
         "model_flops_per_step": flops,
         "bf16_peak_flops": BF16_OPS_PER_S,
         "bf16_peak_source": "NVIDIA H100 SXM data sheet, dense bf16 tensor cores",
         "model_flops_share_of_peak": flops / step_s / BF16_OPS_PER_S,
         "profile": profile,
     }
-    print(f"training {cfg.name}: {TRAIN_STEPS} steps x {tokens} tokens, "
-          f"{step_s:.3f} s/step after the first ({tokens / step_s:.0f} tokens/s, "
+    print(f"training {cfg.name}: {n_steps} steps x {tokens} tokens, "
+          f"{step_s:.3f} s/step after the first, median {median_s:.3f}, slow steps "
+          f"{summary['slow_steps']} ({tokens / step_s:.0f} tokens/s, "
           f"{summary['model_flops_share_of_peak']:.3f} of the bf16 peak in 6·N·tokens), "
           f"first loss {steps[0]['loss']:.4f} (ln V {ln_vocab:.4f}), peak {peak:.2f} GiB")
-    print(json.dumps({"training_path": summary}))
+    print(json.dumps({name: summary}))
     return summary
 
 
@@ -1277,6 +1516,44 @@ def time_k3(gen) -> dict:
     return timing("ssd_scan", [B, nc, Q_, nh, hp, N], kernel, plain, None,
                   tf32_s, moved / HBM_BYTES_PER_S, max_abs_err=max(errs),
                   operations_fp32_cuda_cores_ms=1e3 * f32_s)
+
+
+def time_k3_backward(gen) -> dict:
+    """K3's backward at one zamba2-1.2b training microbatch's shape: kernel
+    and the closed-form plain version's times. No single PyTorch call
+    computes it."""
+    B, nc, Q_, nh, hp, N = K3_TRAIN_SHAPE
+    args = ssd_inputs(gen, *K3_TRAIN_SHAPE)
+    grads = ssd_output_grads(gen, *K3_TRAIN_SHAPE)
+
+    def kernel(i):
+        return ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
+
+    def plain(i):
+        return ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+
+    got = kernel(0)
+    torch.cuda.synchronize()
+    errors = hold_k3_backward(got, args, grads)     # held at the training shape
+    print(f"K3 backward vs plain at {list(K3_TRAIN_SHAPE)} x bf16: {json.dumps(errors)}")
+    tri = Q_ * (Q_ + 1) / 2
+    # per head the lower triangles of dy x^T and M^T dy, x dS and (w B) dS^T;
+    # per chunk the lower triangle of C B^T, and dC and dB
+    x_ops = B * nc * nh * (2 * hp * tri + 2 * Q_ * hp * N)      # dy x^T, x dS
+    f32_ops = B * nc * (nh * (2 * hp * tri + 2 * Q_ * hp * N) + 6 * N * tri)
+    # the fastest float32-accurate products on the card, as time_k3 bounds
+    # the forward: 3xTF32 on the tensor cores, 3 TF32 products for each
+    # float32 one, 2 for those with the bf16 x (exact in TF32)
+    tf32_s = (2 * x_ops + 3 * f32_ops) / TF32_OPS_PER_S
+    f32_s = (x_ops + f32_ops) / FP32_OPS_PER_S     # the kernel as written
+    # x and dx in bf16; dy, dS, dt, seg, B, C, ddecay read and ddt, dseg, dB,
+    # dC written in float32
+    moved = (B * nc * Q_ * nh * hp * (2 + 4 + 2) + B * nc * nh * hp * N * 4
+             + 4 * B * nc * Q_ * nh * 4 + 4 * B * nc * Q_ * N * 4 + B * nc * nh * 4)
+    return timing("ssd_scan_bwd", list(K3_TRAIN_SHAPE), kernel, plain, None,
+                  tf32_s, moved / HBM_BYTES_PER_S,
+                  max_abs_err=max(v for k, v in errors.items() if k.endswith("max_abs_err")),
+                  operations_fp32_cuda_cores_ms=1e3 * f32_s, **errors)
 
 
 def time_k2_backward(gen) -> dict:
@@ -1344,6 +1621,8 @@ def timing(name, shape, kernel, plain, library, ops_s, bytes_s, **extra) -> dict
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--train-steps", type=int, default=TRAIN_STEPS,
+                        help="steps of each full-size training path")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1371,12 +1650,16 @@ def main() -> int:
     check_k2_backward(gen)
     check_small_dense(args.seed)
     dense = serving_path(DENSE_ARCH, args.seed, "dense_serving_path")
-    training = training_path(args.seed)
+    check_small_ssm_training(args.seed)
+    training = training_path(DENSE_ARCH, "training_path", args.seed, args.train_steps)
+    torch.cuda.empty_cache()
+    hybrid_training = training_path(HYBRID_ARCH, "hybrid_training_path", args.seed,
+                                    args.train_steps)
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
-    k2, k3, k2b = time_k2(gen), time_k3(gen), time_k2_backward(gen)
+    k2, k3, k2b, k3b = time_k2(gen), time_k3(gen), time_k2_backward(gen), time_k3_backward(gen)
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
@@ -1390,14 +1673,24 @@ def main() -> int:
     k2["launches_by_path"] = {
         "zamba2_prefill": serving["launches"]["flash_attention"],
         "qwen3_prefill": dense["launches"]["flash_attention"],
-        f"qwen3_train_{TRAIN_STEPS}_steps": training["launches"]["flash_attention"]}
-    k2b["launches_per_train_step"] = training["k2_bwd_launches_per_step"]
+        f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention"],
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention"]}
+    k2b["launches_per_train_step"] = training["launches_per_step"]["flash_attention_bwd"]
+    k2b["launches_by_path"] = {
+        f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention_bwd"],
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention_bwd"]}
+    k3["launches_by_path"] = {
+        "zamba2_prefill": serving["launches"]["ssd_scan"],
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["ssd_scan"]}
+    k3b["launches_per_train_step"] = hybrid_training["launches_per_step"]["ssd_scan_bwd"]
     for k, replaces, launches in (
             (k2, "src/repro/kernels/flash_attention.py:91",
              serving["launches"]["flash_attention"]),
             (k2b, "src/repro/kernels/flash_attention.py:91",
              training["launches"]["flash_attention_bwd"]),
-            (k3, "src/repro/kernels/ssd_scan.py:64", serving["launches"]["ssd_scan"])):
+            (k3, "src/repro/kernels/ssd_scan.py:64", serving["launches"]["ssd_scan"]),
+            (k3b, "src/repro/kernels/ssd_scan.py:64",
+             hybrid_training["launches"]["ssd_scan_bwd"])):
         kernels.append({
             "name": k["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k['name']}.cu",

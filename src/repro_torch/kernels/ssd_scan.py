@@ -7,25 +7,26 @@ product — the intra-chunk block, which carries almost all the FLOPs and is
 K3 — and across chunks a short linear recurrence carries the
 ``(nh, hp, N)`` state.
 
-For the intra-chunk block three functions compute it:
+For the intra-chunk block:
   * :func:`ssd_intra_chunk_cuda` launches the hand-written CUDA kernel
     ``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/ssd_scan.py`` (``ssd_intra_chunk`` and its ``_kernel``);
     that source says what bounds it and how it is designed. Its products
     run on the TF32 tensor cores in the 3xTF32 split (each float32 operand
     as the sum of two TF32 values), which keeps float32 accuracy;
+  * :func:`ssd_intra_chunk_bwd_cuda` launches K3's backward,
+    ``csrc/ssd_scan_bwd.cu``, on float32 CUDA cores. The JAX package has no
+    Pallas backward: it differentiates ``repro.models.mamba2.ssd_chunked``;
   * :func:`ssd_intra_chunk_plain` is the plain PyTorch version, the
-    intra-chunk terms of ``repro.models.mamba2.ssd_chunked``;
+    intra-chunk terms of ``repro.models.mamba2.ssd_chunked``, and
+    :func:`ssd_intra_chunk_bwd_plain` the closed form of its gradient, which
+    the backward kernel computes;
+  * :class:`SSDIntraChunk` is the autograd function of the two kernels: it
+    saves only the inputs, and its backward recomputes the rest;
   * :func:`ssd_intra_chunk` picks by the inputs' device: a CUDA tensor
-    launches the kernel or raises, a CPU tensor runs the plain version.
-
-K3 has no backward kernel yet (``ROADMAP.md`` queue 2). The kernel writes
-its outputs through ``ctypes``, so they carry no autograd graph: where grad
-mode is on and an input requires a gradient, :func:`ssd_intra_chunk_cuda`
-raises ``NotImplementedError`` before it launches, rather than return a
-result whose gradient would silently lack the intra-chunk terms. Under
-``torch.no_grad`` or ``torch.inference_mode`` (serving) it launches; the
-plain version on the CPU keeps its full autograd gradient.
+    launches the kernels (through :class:`SSDIntraChunk` where grad mode is
+    on and an input requires a gradient) or raises, a CPU tensor runs the
+    plain version, whose gradient autograd takes.
 
 :func:`ssd_chunked` is the host side around it (the ``seg`` cumsum, the
 inter-chunk recurrence as a loop over chunks, ``y_inter`` and the ``D``
@@ -45,9 +46,24 @@ from repro_torch.kernels import _build
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
 HEADS_PER_BLOCK = 32     # heads that share one C Bᵀ in the kernel
+BWD_HEADS_PER_BLOCK = 8  # heads whose dC Bᵀ one block of the backward sums
 
-# Kernel launches made by ssd_intra_chunk_cuda since the count was last reset.
+# Kernel launches made by ssd_intra_chunk_cuda and ssd_intra_chunk_bwd_cuda
+# since the counts were last reset.
 launches = 0
+bwd_launches = 0
+
+
+def _decay(seg):
+    """L[i,j] = exp(seg_i - seg_j) for i >= j and 0 above the diagonal,
+    (B,nc,Q,Q,nh). The exponent is -inf above the diagonal before the exp:
+    exp(seg_i - seg_j) overflows there, and selecting after the exp would
+    give 0 * inf = NaN in the gradient (as jax.grad of
+    repro.models.mamba2.ssd_chunked does)."""
+    Q = seg.shape[2]
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=seg.device).tril()
+    return torch.exp(torch.where(causal[None, None, :, :, None], diff, -torch.inf))
 
 
 def ssd_intra_chunk_plain(x, dt, seg, Bm, Cm):
@@ -57,13 +73,8 @@ def ssd_intra_chunk_plain(x, dt, seg, Bm, Cm):
     (B,nc,Q,N) in float32. Returns float32 ``(y_intra (B,nc,Q,nh,hp),
     state_in (B,nc,nh,hp,N), chunk_decay (B,nc,nh))``.
     """
-    Q = x.shape[2]
     xf = x.float()
-    # L[i,j] = exp(seg_i - seg_j) * dt_j for i >= j, selected (never masked
-    # by a product: exp overflows above the diagonal, and inf * 0 is NaN)
-    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]     # (B,nc,Q,Q,nh)
-    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
-    Lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff), 0.0)
+    Lmat = _decay(seg)                                        # (B,nc,Q,Q,nh)
     CB = torch.einsum("bcin,bcjn->bcij", Cm, Bm)              # (B,nc,Q,Q)
     M = CB[..., None] * Lmat * dt[:, :, None, :, :]           # (B,nc,Q,Q,nh)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", M, xf)
@@ -75,10 +86,72 @@ def ssd_intra_chunk_plain(x, dt, seg, Bm, Cm):
     return y_intra, state_in, chunk_decay
 
 
+def ssd_intra_chunk_bwd_plain(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
+    """Plain PyTorch version of K3's backward, on any device: the closed-form
+    gradient of :func:`ssd_intra_chunk_plain`.
+
+    Takes its inputs and the gradients of its three outputs (``dy``
+    (B,nc,Q,nh,hp), ``dstate`` (B,nc,nh,hp,N), ``ddecay`` (B,nc,nh)) and
+    returns ``(dx, ddt, dseg, dBm, dCm)``: dx in x's dtype, the rest in
+    float32. Per (b, c, h), with CB = C Bᵀ, L_ij = exp(seg_i - seg_j) and
+    M_ij = CB_ij L_ij dt_j for i >= j, w_j = exp(seg_last - seg_j) dt_j and
+    dS = dstate:
+
+      dx_j  = sum_{i>=j} M_ij dy_i + w_j dS B_j
+      K_ij  = (dy_i . x_j) CB_ij L_ij            (dM_ij = dy_i . x_j)
+      dw_j  = x_j . dS B_j
+      ddt_j = sum_i K_ij + dw_j exp(seg_last - seg_j)
+      dseg_i = sum_j K_ij dt_j - dt_i sum_j K_ji - dw_i w_i,
+               plus sum_j dw_j w_j + ddecay exp(seg_last) at i = last
+      dCB_ij = sum_h dM_ij L_ij dt_j;  dC = dCB B;
+      dB = dCBᵀ C + sum_h w_j x_jᵀ dS
+    """
+    xf = x.float()
+    Lmat = _decay(seg)                                        # (B,nc,Q,Q,nh)
+    CB = torch.einsum("bcin,bcjn->bcij", Cm, Bm)              # (B,nc,Q,Q)
+    dt_j = dt[:, :, None, :, :]                               # (B,nc,1,Q,nh)
+    M = CB[..., None] * Lmat * dt_j
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dy, xf)
+    decay_out = torch.exp(seg[:, :, -1:, :] - seg)            # (B,nc,Q,nh)
+    w = decay_out * dt
+    P = torch.einsum("bcjn,bchpn->bcjhp", Bm, dstate)        # dS B_j
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M, dy) + w[..., None] * P
+    K = dM * CB[..., None] * Lmat
+    colK = K.sum(2)                                           # over i
+    dw = (xf * P).sum(-1)
+    ddt = colK + dw * decay_out
+    dseg = (K * dt_j).sum(3) - dt * colK - dw * w
+    last = (dw * w).sum(2) + ddecay * torch.exp(seg[:, :, -1, :])
+    dseg = torch.cat([dseg[:, :, :-1], dseg[:, :, -1:] + last[:, :, None]], dim=2)
+    dCB = (dM * Lmat * dt_j).sum(-1)
+    dC = torch.einsum("bcij,bcjn->bcin", dCB, Bm)
+    dB = (torch.einsum("bcij,bcin->bcjn", dCB, Cm)
+          + torch.einsum("bcjhp,bchpn->bcjn", w[..., None] * xf, dstate))
+    return dx.to(x.dtype), ddt, dseg, dB, dC
+
+
+class SSDIntraChunk(torch.autograd.Function):
+    """K3 on the card with its gradient: the forward kernel, and the
+    backward kernel, which recomputes C Bᵀ, L and M from the saved inputs
+    ``(x, dt, seg, Bm, Cm)``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, seg, Bm, Cm):
+        ctx.save_for_backward(x, dt, seg, Bm, Cm)
+        return ssd_intra_chunk_cuda(x, dt, seg, Bm, Cm)
+
+    @staticmethod
+    def backward(ctx, dy, dstate, ddecay):
+        return ssd_intra_chunk_bwd_cuda(*ctx.saved_tensors, dy.contiguous(),
+                                        dstate.contiguous(), ddecay.contiguous())
+
+
 def ssd_intra_chunk(x, dt, seg, Bm, Cm):
-    """K3 on the inputs' device: the kernel for CUDA, the plain version for
-    the CPU."""
+    """K3 on the inputs' device: the kernel for CUDA (differentiable through
+    the backward kernel), the plain version for the CPU."""
     if x.device.type == "cuda":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, seg, Bm, Cm)):
+            return SSDIntraChunk.apply(x, dt, seg, Bm, Cm)
         return ssd_intra_chunk_cuda(x, dt, seg, Bm, Cm)
     if x.device.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, seg, Bm, Cm)
@@ -96,53 +169,60 @@ def _launcher():
     return fn
 
 
+def _check(name, x, dt, seg, Bm, Cm, grads=()):
+    """Raise unless the inputs (and, for the backward, ``grads``: dy, dstate,
+    ddecay) are what the kernels take: contiguous CUDA tensors on one device,
+    x ``(B,nc,Q,nh,hp)`` in bfloat16 or float32, dt and seg ``(B,nc,Q,nh)``,
+    Bm and Cm ``(B,nc,Q,N)``, dy ``(B,nc,Q,nh,hp)``, dstate
+    ``(B,nc,nh,hp,N)`` and ddecay ``(B,nc,nh)`` in float32, with Q, hp and N
+    from 1 to ``MAX_DIM``. Returns (B, nc, Q, nh, hp, N)."""
+    if x.ndim != 5:
+        raise ValueError(f"{name}: x must be (B,nc,Q,nh,hp); got {tuple(x.shape)}")
+    B, nc, Q, nh, hp = x.shape
+    N = Bm.shape[-1]
+    if (dt.shape != (B, nc, Q, nh) or seg.shape != dt.shape
+            or Bm.ndim != 4 or Bm.shape[:3] != (B, nc, Q) or Cm.shape != Bm.shape):
+        raise ValueError(f"{name}: dt and seg must be (B,nc,Q,nh) and "
+                         f"Bm, Cm (B,nc,Q,N) for x {tuple(x.shape)}; got "
+                         f"{tuple(dt.shape)}, {tuple(seg.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
+    if grads:
+        want = ((B, nc, Q, nh, hp), (B, nc, nh, hp, N), (B, nc, nh))
+        got = tuple(tuple(g.shape) for g in grads)
+        if got != want:
+            raise ValueError(f"{name}: dy, dstate and ddecay must be {want}; got {got}")
+    tensors = (x, dt, seg, Bm, Cm, *grads)
+    device = x.device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: inputs must lie on one CUDA "
+                         f"device; got {[str(t.device) for t in tensors]}")
+    if (x.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != torch.float32 for t in tensors[1:])):
+        raise TypeError(f"{name}: x must be float32 or bfloat16 and "
+                        "everything else float32; got "
+                        f"{[t.dtype for t in tensors]}")
+    if not (1 <= Q <= MAX_DIM and 1 <= hp <= MAX_DIM and 1 <= N <= MAX_DIM and nh):
+        raise ValueError(f"{name}: Q={Q}, hp={hp}, N={N}, nh={nh}; the "
+                         f"kernel takes Q, hp and N from 1 to {MAX_DIM}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return B, nc, Q, nh, hp, N
+
+
 def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
                          Bm: torch.Tensor, Cm: torch.Tensor):
     """Launch the CUDA kernel on the current stream of the inputs' device.
 
     Takes contiguous CUDA tensors on one device: x ``(B,nc,Q,nh,hp)`` in
     bfloat16 or float32, dt and seg ``(B,nc,Q,nh)`` and Bm, Cm ``(B,nc,Q,N)``
-    in float32, with Q, hp and N at most ``MAX_DIM``. Raises
-    ``NotImplementedError`` where a gradient is wanted (grad mode on and an
-    input that requires one), since K3 has no backward kernel yet; raises on
-    anything else and when the launch fails. Outputs as
-    :func:`ssd_intra_chunk_plain`.
+    in float32, with Q, hp and N at most ``MAX_DIM``; raises on anything
+    else and when the launch fails. Outputs as :func:`ssd_intra_chunk_plain`,
+    with no autograd graph: :func:`ssd_intra_chunk` takes
+    :class:`SSDIntraChunk` where a gradient is wanted.
     """
     global launches
-    if torch.is_grad_enabled() and (x.requires_grad or dt.requires_grad or seg.requires_grad
-                                    or Bm.requires_grad or Cm.requires_grad):
-        raise NotImplementedError(
-            "ssd_intra_chunk_cuda: an input requires a gradient, and K3's backward "
-            "kernel is not ported yet (ROADMAP.md queue 2, K3's backward); the "
-            "kernel's outputs would carry no gradient. Run it under torch.no_grad() "
-            "or torch.inference_mode(), or on CPU tensors for the plain version's "
-            "gradient")
-    if x.ndim != 5:
-        raise ValueError(f"ssd_intra_chunk_cuda: x must be (B,nc,Q,nh,hp); got "
-                         f"{tuple(x.shape)}")
-    B, nc, Q, nh, hp = x.shape
-    N = Bm.shape[-1]
-    if (dt.shape != (B, nc, Q, nh) or seg.shape != dt.shape
-            or Bm.ndim != 4 or Bm.shape[:3] != (B, nc, Q) or Cm.shape != Bm.shape):
-        raise ValueError("ssd_intra_chunk_cuda: dt and seg must be (B,nc,Q,nh) and "
-                         f"Bm, Cm (B,nc,Q,N) for x {tuple(x.shape)}; got "
-                         f"{tuple(dt.shape)}, {tuple(seg.shape)}, {tuple(Bm.shape)}, "
-                         f"{tuple(Cm.shape)}")
-    tensors = (x, dt, seg, Bm, Cm)
+    B, nc, Q, nh, hp, N = _check("ssd_intra_chunk_cuda", x, dt, seg, Bm, Cm)
     device = x.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError("ssd_intra_chunk_cuda: inputs must lie on one CUDA "
-                         f"device; got {[str(t.device) for t in tensors]}")
-    if (x.dtype not in (torch.float32, torch.bfloat16)
-            or any(t.dtype != torch.float32 for t in tensors[1:])):
-        raise TypeError("ssd_intra_chunk_cuda: x must be float32 or bfloat16 and "
-                        "dt, seg, Bm, Cm float32; got "
-                        f"{[t.dtype for t in tensors]}")
-    if not (1 <= Q <= MAX_DIM and 1 <= hp <= MAX_DIM and 1 <= N <= MAX_DIM and nh):
-        raise ValueError(f"ssd_intra_chunk_cuda: Q={Q}, hp={hp}, N={N}, nh={nh}; the "
-                         f"kernel takes Q, hp and N from 1 to {MAX_DIM}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_intra_chunk_cuda: inputs must be contiguous")
     y = torch.empty((B, nc, Q, nh, hp), dtype=torch.float32, device=device)
     state = torch.empty((B, nc, nh, hp, N), dtype=torch.float32, device=device)
     decay = torch.empty((B, nc, nh), dtype=torch.float32, device=device)
@@ -160,6 +240,53 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
                            f"CUDA error {err}")
     launches += 1
     return y, state, decay
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = _build.library("ssd_scan_bwd").ssd_intra_chunk_bwd_launch
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    fn.argtypes = [ptr, i32] + [ptr] * 13 + [i32] * 7 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ssd_intra_chunk_bwd_cuda(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
+    """Launch K3's backward kernels on the current stream of the inputs'
+    device: ``(dx, ddt, dseg, dBm, dCm)`` as :func:`ssd_intra_chunk_bwd_plain`
+    gives them, from K3's inputs and the gradients of its outputs. Takes
+    what :func:`ssd_intra_chunk_cuda` takes, and float32 ``dy``, ``dstate``
+    and ``ddecay`` of y's, state's and decay's shapes; raises on anything
+    else and when a launch fails."""
+    global bwd_launches
+    B, nc, Q, nh, hp, N = _check("ssd_intra_chunk_bwd_cuda", x, dt, seg, Bm, Cm,
+                                 (dy, dstate, ddecay))
+    device = x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dseg = torch.empty_like(seg)
+    dBm = torch.empty_like(Bm)
+    dCm = torch.empty_like(Cm)
+    if B * nc == 0:
+        return dx, ddt, dseg, dBm, dCm
+    heads = min(nh, BWD_HEADS_PER_BLOCK)
+    groups = -(-nh // heads)
+    # each head group's partial sums over its heads: dC Bᵀ (Q, Q), then the
+    # state's part of dB (Q, N)
+    scratch = torch.empty((B * nc * groups * Q * (Q + N),), dtype=torch.float32,
+                          device=device)
+    with torch.cuda.device(device):
+        err = _bwd_launcher()(
+            x.data_ptr(), int(x.dtype == torch.bfloat16),
+            *(t.data_ptr() for t in (dt, seg, Bm, Cm, dy, dstate, ddecay, dx, ddt,
+                                     dseg, dBm, dCm, scratch)),
+            B, nc, Q, nh, hp, N, heads, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_intra_chunk_bwd_cuda: kernel launch failed with "
+                           f"CUDA error {err}")
+    bwd_launches += 1
+    return dx, ddt, dseg, dBm, dCm
 
 
 def _ssd_chunked(intra, x, dt, A, Bm, Cm, D, chunk, initial_state):

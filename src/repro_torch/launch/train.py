@@ -14,8 +14,9 @@ one device: the sharding rules wait for ``launch/shardings``).
 It updates the parameters and moments in place (the JAX package donates
 them) and returns the same trees.
 
-CLI (on CUDA unless ``--device cpu``):
-  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+CLI (on CUDA unless ``--device cpu``; ``--arch`` any ported configuration,
+e.g. qwen3-1.7b, zamba2-1.2b or mamba2-780m):
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --arch zamba2-1.2b
 """
 
 from __future__ import annotations
@@ -53,14 +54,9 @@ def _fill(tree, it):
 
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
                     quorum=None):
-    """The train step of ``cfg``; raises ``NotImplementedError`` for a family
-    that does not train in the port yet (no ``loss_fn``: ssm and hybrid)."""
+    """The train step of ``cfg`` (``models.family`` raises for a family the
+    port does not have)."""
     fam = family(cfg)
-    if not hasattr(fam, "loss_fn"):
-        raise NotImplementedError(
-            f"make_train_step: the {cfg.family} family ({cfg.name}) does not train in "
-            f"repro_torch yet: its loss_fn and K3's backward kernel are ROADMAP.md "
-            f"queue 1, item 1 (ssm and hybrid training)")
 
     def loss_for(p, mb):
         return fam.loss_fn(cfg, p, mb)

@@ -6,8 +6,7 @@ functional interface for serving:
   prefill(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)
 
-and, for the families that train so far (dense), ``loss_fn(cfg, params,
-batch)``.
+and, for training, ``loss_fn(cfg, params, batch)``.
 
 Only the ported families are listed; the others raise NotImplementedError.
 """

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid (zamba2-1.2b): a Mamba-2 backbone with ONE shared
 attention+MLP block invoked every ``cfg.shared_attn_every`` layers (port of
-``repro.models.hybrid``, serving path).
+``repro.models.hybrid``).
 
 The shared block's parameters are reused at every invocation and its input
 is the projection of ``concat(hidden, original_embedding)``. Prefill runs
@@ -9,7 +9,9 @@ K3 inside every Mamba layer and K2 inside every shared invocation on a card.
 Decode carries per-layer mamba (conv, ssd) states plus a KV cache per shared
 invocation slot ((n_shared, B, S, KV, hd)). The JAX package's ``lax.scan``
 is a loop over the stacked layers and its ``lax.cond`` a Python ``if``.
-``loss_fn`` and the sharding specs wait for the training slice.
+``loss_fn`` checkpoints each layer, the Mamba block and the shared block
+after it together (``cfg.remat``), as the JAX package's ``jax.checkpoint``
+of the scan body does. The sharding specs wait for ``launch/shardings``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,25 @@ def shared_block(cfg, sp, x, x0, positions):
     a = L.attention_train(sp["attn"], cfg, h, positions)
     h2 = L.rmsnorm(a, sp["ln2"])
     return x + a + L.mlp(sp["mlp"], cfg, h2)
+
+
+def _layer(cfg, sp, layer, x, x0, positions, shared: bool):
+    """Mamba layer, then the shared block where this layer has one."""
+    x = M.block(cfg, layer, x)
+    return shared_block(cfg, sp, x, x0, positions) if shared else x
+
+
+def loss_fn(cfg, params, batch):
+    x0 = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    B, S, _ = x0.shape
+    positions = torch.arange(S, device=x0.device).expand(B, S)
+    x = x0
+    for i, layer in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
+        x = L.maybe_remat(cfg, _layer, cfg, params["shared"], layer, x, x0, positions,
+                          _is_shared(cfg, i))
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-exported)
@@ -56,6 +57,15 @@ def unstack_layers(layers: dict, n: int) -> list[dict]:
     ``layer_at`` would scatter each layer's into a zeroed full-size tensor."""
     per_leaf = tree_map(lambda t: t.unbind(0), layers)
     return [tree_map(lambda views: views[i], per_leaf) for i in range(n)]
+
+
+def maybe_remat(cfg, f, *args):
+    """``f(*args)``, checkpointed (``torch.utils.checkpoint``, not
+    reentrant) where ``cfg.remat`` is on: the port of the JAX package's
+    ``jax.checkpoint`` of a layer scan's body, one checkpoint per layer."""
+    if cfg.remat:
+        return checkpoint(f, *args, use_reentrant=False)
+    return f(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,19 @@
 """Mamba-2 SSD (state-space duality) — mamba2-780m, and the backbone of the
-zamba2 hybrid (port of ``repro.models.mamba2``, serving path).
+zamba2 hybrid (port of ``repro.models.mamba2``).
 
 Chunked SSD (Dao & Gu 2024, arXiv:2405.21060): within a chunk of length Q
 the recurrence is a masked (attention-like) matrix product — kernel K3 on a
 card — and across chunks a short loop carries the (heads, headdim, d_state)
-state (``repro_torch.kernels.ssd_scan``). Decode is an O(1) single-token
-state update in plain PyTorch, as in the reference.
+state (``repro_torch.kernels.ssd_scan``); on a card K3's gradient is its
+backward kernel. Decode is an O(1) single-token state update in plain
+PyTorch, as in the reference.
 
 Layout: x is split into ``nh`` heads of size ``hp = d_inner // nh``; B and
-C are shared across heads (a single group, as mamba2-780m has). ``loss_fn``,
-``block`` and the sharding specs wait for the training slice.
+C are shared across heads (a single group, as mamba2-780m has). The JAX
+package's ``lax.scan`` over the layers is a loop, and its ``jax.checkpoint``
+of the scan body (``cfg.remat``) is ``torch.utils.checkpoint`` around each
+layer (``layers.maybe_remat``). The sharding specs wait for
+``launch/shardings``.
 """
 
 from __future__ import annotations
@@ -140,8 +144,27 @@ def mixer_decode(params, cfg, u, conv_state, ssm_state):
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill / decode
+# model: train / prefill / decode
 # ---------------------------------------------------------------------------
+
+def block(cfg, layer, x):
+    h = L.rmsnorm(x, layer["ln"])
+    y, _ = mixer_forward(layer["mixer"], cfg, h)
+    return x + y
+
+
+def trunk(cfg, params, x):
+    for layer in L.unstack_layers(params["layers"], cfg.n_layers):
+        x = L.maybe_remat(cfg, block, cfg, layer, x)
+    return L.rmsnorm(x, params["ln_f"])
+
+
+def loss_fn(cfg, params, batch):
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    x = trunk(cfg, params, x)
+    logits = L.unembed(params["embed"], x)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
+
 
 def init_cache(cfg, B, S, dtype=None, *, device=None):
     """Mamba cache is O(1) in context length: conv window + SSD state."""

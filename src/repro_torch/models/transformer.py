@@ -4,16 +4,15 @@ phi4-mini) — also the backbone for the VLM and the decoder of the enc-dec
 
 The JAX package's ``lax.scan`` over stacked layers is a loop here, and its
 ``jax.checkpoint`` of the scan body (``cfg.remat``) is
-``torch.utils.checkpoint`` around each layer. Attention runs K2 on a card,
-forward and backward. Decode writes the KV cache in place, where the JAX
-package returns a new cache from a donated one. The sharding specs wait for
-``launch/shardings``.
+``torch.utils.checkpoint`` around each layer (``layers.maybe_remat``).
+Attention runs K2 on a card, forward and backward. Decode writes the KV
+cache in place, where the JAX package returns a new cache from a donated
+one. The sharding specs wait for ``launch/shardings``.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import default_device
 from repro_torch.models import layers as L
@@ -55,10 +54,7 @@ def block(cfg, layer, x, positions):
 
 def trunk(cfg, params, x, positions):
     for layer in L.unstack_layers(params["layers"], cfg.n_layers):
-        if cfg.remat:
-            x = checkpoint(block, cfg, layer, x, positions, use_reentrant=False)
-        else:
-            x = block(cfg, layer, x, positions)
+        x = L.maybe_remat(cfg, block, cfg, layer, x, positions)
     return L.rmsnorm(x, params["ln_f"])
 
 

@@ -339,27 +339,110 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K1 and K3 have no backward kernel: where a gradient is wanted their CUDA
-# wrappers raise and launch nothing; under no_grad they launch as before.
+# K3's backward kernel against the closed-form plain backward, and the
+# gradient through SSDIntraChunk. float32 at atol/rtol 1e-4, the forward's
+# contract; a bf16 dx row by row against the plain backward run in float32
+# on the same bf16 x: its largest row error at most twice the bf16 plain
+# version's, or one bf16 ulp (2^-8), the rounding of dx itself.
 # ---------------------------------------------------------------------------
 
+K3_INPUTS = ("x", "dt", "seg", "Bm", "Cm")
 
-@pytest.mark.parametrize("name", ["x", "dt", "seg", "Bm", "Cm"])
-def test_k3_wrapper_raises_where_a_gradient_is_wanted(no_tf32, name):
+
+def ssd_output_grads(seed, B, nc, Q, nh, hp, N, device):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device)
+            for s in ((B, nc, Q, nh, hp), (B, nc, nh, hp, N), (B, nc, nh))]
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", [
+    (2, 2, 128, 4, 64, 64, torch.bfloat16), (1, 3, 64, 9, 32, 16, torch.float32),
+    (1, 2, 128, 2, 128, 128, torch.float32), (1, 1, 33, 3, 12, 20, torch.float32),
+    (1, 1, 33, 3, 12, 20, torch.bfloat16), (2, 1, 16, 16, 8, 4, torch.bfloat16),
+    (1, 1, 128, 40, 64, 128, torch.bfloat16), (1, 1, 1, 1, 1, 1, torch.float32)])
+def test_ssd_backward_kernel_matches_plain(no_tf32, B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N, B, nc, Q, nh, hp, N, xdtype, no_tf32)
+    grads = ssd_output_grads(Q, B, nc, Q, nh, hp, N, no_tf32)
+    before = ssd.bwd_launches
+    got = ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1
+    want = ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+    for name, g, w in zip(K3_INPUTS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all(), name
+        if g.dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+    if xdtype == torch.bfloat16:
+        ref = ssd.ssd_intra_chunk_bwd_plain(args[0].float(), *args[1:], *grads)[0]
+        assert row_err(got[0], ref) <= max(2 * row_err(want[0], ref), BF16_ULP)
+    again = ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))      # no atomics
+
+
+@pytest.mark.parametrize("name", K3_INPUTS)
+def test_k3_gives_the_gradient_where_one_is_wanted(no_tf32, name):
+    """ssd_intra_chunk with ``name`` requiring a gradient: K3 once forward,
+    its backward kernel once, and the plain version's autograd gradient."""
     args = list(ssd_inputs(0, 1, 2, 32, 2, 8, 4, torch.float32, no_tf32))
-    i = ("x", "dt", "seg", "Bm", "Cm").index(name)
+    i = K3_INPUTS.index(name)
     args[i] = args[i].clone().requires_grad_()
-    before = ssd.launches
-    with pytest.raises(NotImplementedError, match="K3's backward"):
-        ssd.ssd_intra_chunk_cuda(*args)
-    assert ssd.launches == before
+    grads = ssd_output_grads(1, 1, 2, 32, 2, 8, 4, no_tf32)
+    fwd, bwd = ssd.launches, ssd.bwd_launches
+    outs = ssd.ssd_intra_chunk(*args)
+    assert (ssd.launches, ssd.bwd_launches) == (fwd + 1, bwd)
+    (got,) = torch.autograd.grad(outs, [args[i]], grads)
+    torch.cuda.synchronize()
+    assert (ssd.launches, ssd.bwd_launches) == (fwd + 1, bwd + 1)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(ssd.ssd_intra_chunk_plain(*leaves), leaves, grads)[i]
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
     with torch.no_grad():
-        got = ssd.ssd_intra_chunk_cuda(*args)
-        torch.cuda.synchronize()
-        want = ssd.ssd_intra_chunk_plain(*args)
-    assert ssd.launches == before + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        ssd.ssd_intra_chunk(*args)
+    assert (ssd.launches, ssd.bwd_launches) == (fwd + 2, bwd + 1)
+
+
+def test_ssd_on_cuda_is_differentiable_through_k3(no_tf32):
+    """ops.ssd on the card: every input's gradient equals the plain scan's on
+    the CPU (float32, 1e-3 of the largest magnitude: K3's 1e-4 carried
+    through the inter-chunk recurrence)."""
+    x, dt, seg, Bm, Cm = ssd_inputs(3, 1, 2, 64, 3, 16, 8, torch.float32, no_tf32)
+    inputs = {"x": x.reshape(1, 128, 3, 16), "dt": dt.reshape(1, 128, 3),
+              "A": -torch.linspace(0.5, 2.0, 3, device=no_tf32), "Bm": Bm.reshape(1, 128, 8),
+              "Cm": Cm.reshape(1, 128, 8), "D": torch.linspace(0.5, 1.5, 3, device=no_tf32)}
+    g = torch.Generator(no_tf32).manual_seed(4)
+    wy = torch.randn(1, 128, 3, 16, generator=g, device=no_tf32)
+    ws = torch.randn(1, 3, 16, 8, generator=g, device=no_tf32)
+    grads = {}
+    for device in (no_tf32, torch.device("cpu")):
+        leaves = {k: v.detach().to(device).requires_grad_() for k, v in inputs.items()}
+        y, s = ops.ssd(*leaves.values(), 64)
+        ((y * wy.to(device)).sum() + (s * ws.to(device)).sum()).backward()
+        grads[device.type] = {k: v.grad for k, v in leaves.items()}
+    for k, want in grads["cpu"].items():
+        got = grads["cuda"][k].cpu()
+        scale = float(want.abs().max())
+        assert scale > 0, k
+        torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=1e-3, msg=k)
+
+
+def test_k3_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = ssd_inputs(0, 1, 1, 16, 2, 8, 4, torch.float32, cuda)
+    dy, ds, dd = ssd_output_grads(0, 1, 1, 16, 2, 8, 4, cuda)
+    with pytest.raises(ValueError, match="dy, dstate and ddecay"):
+        ssd.ssd_intra_chunk_bwd_cuda(*args, dy[..., :4], ds, dd)
+    with pytest.raises(TypeError):
+        ssd.ssd_intra_chunk_bwd_cuda(*args, dy.bfloat16(), ds, dd)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd.ssd_intra_chunk_bwd_cuda(*args, dy, ds.cpu(), dd)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_intra_chunk_bwd_cuda(*args, dy.transpose(3, 4).contiguous().transpose(3, 4),
+                                     ds, dd)
+
+
+# ---------------------------------------------------------------------------
+# K1 has no backward kernel: where a gradient is wanted its CUDA wrapper
+# raises and launches nothing; under no_grad it launches as before.
+# ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("name", ["arrivals", "weights", "threshold"])

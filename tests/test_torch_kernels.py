@@ -91,7 +91,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
     assert _build.sources() == ["flash_attention", "flash_attention_bwd", "quorum_commit",
-                                "ssd_scan"]
+                                "ssd_scan", "ssd_scan_bwd"]
     path = _build.library_path("quorum_commit")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     monkeypatch.setattr(_build, "CSRC", tmp_path)

@@ -8,12 +8,20 @@
   ``tests/test_kernels.py`` (SSD scan), at 2e-3 as there.
 * A step ``dt·A`` large enough that ``exp`` overflows above the diagonal:
   no NaN.
-* K3 has no backward kernel yet: its CUDA wrapper raises
-  ``NotImplementedError`` where a gradient is wanted, before its device
-  check, and the plain scan's CPU gradient equals ``jax.grad`` of the JAX
-  model's ``ssd_chunked``.
-The CUDA kernel is tested on a GPU by ``tests/test_torch_cuda.py``.
+* K3's gradient: the closed-form plain backward
+  (``ssd_intra_chunk_bwd_plain``, the formulas of the backward kernel)
+  against autograd of the plain block at 1e-5 of each gradient's largest
+  magnitude, on ragged Q, N != hp, nh 1 and nh > 32; the ``SSDIntraChunk``
+  wiring on the CPU with its launchers swapped for counting plain versions,
+  and ``ops.ssd`` through it against ``jax.grad`` of the JAX model's
+  ``ssd_chunked`` for each of x, dt, A, Bm, Cm and D; the plain scan's own
+  CPU gradient against ``jax.grad``; and a gradient that stays finite where
+  ``exp(seg_i - seg_j)`` overflows above the diagonal (``jax.grad`` of the
+  reference is NaN there).
+The CUDA kernels are tested on a GPU by ``tests/test_torch_cuda.py``.
 """
+
+import functools
 
 import pytest
 
@@ -168,28 +176,156 @@ def test_cpu_tensors_run_the_plain_version_and_the_wrapper_checks():
 
 
 # ---------------------------------------------------------------------------
-# K3 has no backward kernel yet: its CUDA wrapper raises where a gradient is
-# wanted (before it looks at the device), launches under no_grad, and the
-# plain version on the CPU keeps its full gradient.
+# K3's gradient: the closed form of the backward kernel, and the autograd
+# function that launches the two kernels on a card, wired here to counting
+# plain versions.
 # ---------------------------------------------------------------------------
 
 K3_INPUTS = ("x", "dt", "seg", "Bm", "Cm")
+# (B, S, nh, hp, N, Q): ragged Q, N != hp, one head, more heads than a
+# forward block's 32
+GRAD_SHAPES = [(1, 66, 3, 12, 20, 33), (2, 64, 2, 8, 4, 32), (1, 32, 1, 16, 16, 16),
+               (1, 32, 33, 4, 8, 16)]
+
+
+def output_grads(seed, args):
+    """Random gradients of y, state and decay for the block's inputs."""
+    B, nc, Q, nh, hp = args[0].shape
+    N = args[3].shape[-1]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((B, nc, Q, nh, hp), (B, nc, nh, hp, N), (B, nc, nh))]
+
+
+def close_to_max(got, want, tol):
+    """Within ``tol`` of the gradient's largest magnitude, and ``tol``
+    relative."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               atol=tol * float(np.abs(want).max()), rtol=tol)
+
+
+@pytest.mark.parametrize("B,S,nh,hp,N,Q", GRAD_SHAPES)
+def test_closed_form_backward_matches_autograd(B, S, nh, hp, N, Q):
+    """ssd_intra_chunk_bwd_plain equals autograd of ssd_intra_chunk_plain at
+    1e-5 (float32 sums in another order)."""
+    args = [torch.from_numpy(a) for a in chunk(*inputs(S + nh, B, S, nh, hp, N), Q)]
+    dy, dstate, ddecay = output_grads(S + N, args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(ssd.ssd_intra_chunk_plain(*leaves), leaves,
+                               (dy, dstate, ddecay))
+    got = ssd.ssd_intra_chunk_bwd_plain(*args, dy, dstate, ddecay)
+    for name, g, w in zip(K3_INPUTS, got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape, name
+        close_to_max(g, w.numpy(), 1e-5)
+
+
+@pytest.fixture
+def plain_launchers(monkeypatch):
+    """ssd_intra_chunk routed through SSDIntraChunk on CPU tensors, its two
+    launchers swapped for the plain forward and backward; returns the
+    counts of their calls."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(*args):
+        calls["fwd"] += 1
+        return ssd.ssd_intra_chunk_plain(*args)
+
+    def bwd(*args):
+        calls["bwd"] += 1
+        return ssd.ssd_intra_chunk_bwd_plain(*args)
+
+    monkeypatch.setattr(ssd, "ssd_intra_chunk_cuda", fwd)
+    monkeypatch.setattr(ssd, "ssd_intra_chunk_bwd_cuda", bwd)
+    monkeypatch.setattr(ssd, "ssd_intra_chunk", ssd.SSDIntraChunk.apply)
+    return calls
 
 
 @pytest.mark.parametrize("name", K3_INPUTS)
-def test_k3_wrapper_raises_where_a_gradient_is_wanted(name):
+def test_k3_function_gives_each_inputs_gradient(name, plain_launchers):
+    """SSDIntraChunk with ``name`` requiring a gradient: one forward launch,
+    one backward launch, and the gradient of the plain block (1e-5); the
+    wrapper's launch counts stay where they were."""
     args = [torch.from_numpy(a) for a in chunk(*inputs(11, 1, 64, 2, 8, 4), 32)]
     i = K3_INPUTS.index(name)
     args[i] = args[i].clone().requires_grad_()
-    before = ssd.launches
-    with pytest.raises(NotImplementedError, match="K3's backward"):
-        ssd.ssd_intra_chunk_cuda(*args)
-    # without grad mode the gradient is not wanted: the wrapper goes on to its
-    # device check, which a CPU tensor fails
-    for ctx in (torch.no_grad, torch.inference_mode):
-        with ctx(), pytest.raises(ValueError, match="CUDA"):
-            ssd.ssd_intra_chunk_cuda(*args)
-    assert ssd.launches == before
+    grads = output_grads(12, args)
+    before = (ssd.launches, ssd.bwd_launches)
+    outs = ssd.SSDIntraChunk.apply(*args)
+    assert plain_launchers == {"fwd": 1, "bwd": 0}
+    for g, w in zip(outs, ssd.ssd_intra_chunk_plain(*args)):
+        assert torch.equal(g, w)
+    (got,) = torch.autograd.grad(outs, [args[i]], grads)
+    assert plain_launchers == {"fwd": 1, "bwd": 1}
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(ssd.ssd_intra_chunk_plain(*leaves), leaves, grads)[i]
+    assert got.abs().max() > 0
+    close_to_max(got, want.numpy(), 1e-5)
+    assert (ssd.launches, ssd.bwd_launches) == before
+
+
+SSD_ARGS = ("x", "dt", "A", "Bm", "Cm", "D")
+
+
+@functools.cache
+def ssd_grad_case(B, S, nh, hp, N, Q):
+    """Inputs, output weights and jax.grad of the weighted sum of y and the
+    final state of repro.models.mamba2.ssd_chunked, for every input."""
+    arrays = dict(zip(SSD_ARGS[:5], inputs(S * nh + N, B, S, nh, hp, N)))
+    arrays["D"] = np.linspace(0.5, 1.5, nh).astype(np.float32)
+    rng = np.random.default_rng(N)
+    wy = rng.normal(size=(B, S, nh, hp)).astype(np.float32)
+    ws = rng.normal(size=(B, nh, hp, N)).astype(np.float32)
+
+    def jloss(*a):
+        y, s = JM.ssd_chunked(*a, Q)
+        return jnp.sum(y * wy) + jnp.sum(s * ws)
+
+    grads = jax.jit(jax.grad(jloss, argnums=tuple(range(6))))(
+        *(jnp.asarray(arrays[k]) for k in SSD_ARGS))
+    return arrays, wy, ws, dict(zip(SSD_ARGS, (np.asarray(g) for g in grads)))
+
+
+@pytest.mark.parametrize("name", SSD_ARGS)
+@pytest.mark.parametrize("B,S,nh,hp,N,Q", GRAD_SHAPES)
+def test_ssd_through_k3_function_matches_jax_grad(B, S, nh, hp, N, Q, name, plain_launchers):
+    """ops.ssd through SSDIntraChunk (the card's path, with the closed-form
+    backward): the gradient of a weighted sum of y and the final state with
+    respect to each input equals jax.grad of repro.models.mamba2.ssd_chunked
+    (float32, 2e-3 of the gradient's largest magnitude, as the forward)."""
+    arrays, wy, ws, jgrads = ssd_grad_case(B, S, nh, hp, N, Q)
+    want = jgrads[name]
+    order = SSD_ARGS
+    leaves = [torch.from_numpy(arrays[k]).requires_grad_(k == name) for k in order]
+    y, s = ops.ssd(*leaves, Q)
+    ((y * torch.from_numpy(wy)).sum() + (s * torch.from_numpy(ws)).sum()).backward()
+    # D enters only the skip term, outside the block: no backward launch
+    assert plain_launchers == {"fwd": 1, "bwd": int(name != "D")}
+    got = leaves[order.index(name)].grad
+    assert got is not None and got.abs().max() > 0
+    close_to_max(got, want, 2e-3)
+
+
+def test_gradient_stays_finite_where_exp_overflows_above_the_diagonal():
+    """A chunk of 128 steps of dt·A = -1: exp(seg_i - seg_j) above the
+    diagonal reaches exp(127), inf in float32. The plain block's autograd
+    gradient is finite and equals the closed form (which never forms the
+    upper triangle), as the backward kernel does; jax.grad of the reference
+    is NaN there (ROADMAP.md queue 3)."""
+    x, dt, A, Bm, Cm = inputs(17, 1, 128, 2, 8, 4)
+    dt = np.ones_like(dt)
+    A = np.ones_like(A) * -1.0
+    args = [torch.from_numpy(a) for a in chunk(x, dt, A, Bm, Cm, 128)]
+    seg = args[2][0, 0, :, 0].numpy()
+    with np.errstate(over="ignore"):
+        assert np.isinf(np.exp(seg[0] - seg[-1]))      # i = 0 < j = Q-1
+    grads = output_grads(18, args)
+    leaves = [a.clone().requires_grad_() for a in args]
+    got = torch.autograd.grad(ssd.ssd_intra_chunk_plain(*leaves), leaves, grads)
+    want = ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+    for name, g, w in zip(K3_INPUTS, got, want):
+        assert torch.isfinite(g).all(), name
+        close_to_max(g, w.numpy(), 1e-5)
 
 
 @pytest.mark.parametrize("name", ("x", "dt", "A", "Bm", "Cm", "D"))

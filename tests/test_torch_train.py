@@ -184,11 +184,3 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     for a, b in zip(tree_leaves(resumed), tree_leaves(params)):
         assert torch.equal(a, b)
 
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mamba2-780m"])
-def test_make_train_step_raises_for_families_that_do_not_train_yet(arch):
-    """ssm and hybrid have no loss_fn in the port (ROADMAP queue 1 item 1):
-    make_train_step says so when it is built, not at the first step."""
-    cfg = configs.smoke(arch)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family.*queue 1, item 1"):
-        train.make_train_step(cfg, AdamWConfig())
