@@ -17,7 +17,9 @@ Numerics against the JAX package: ``geometric_weights`` computes in float32
 ``torch.pow`` and differs from JAX's float32 result by at most 1.2e-7
 relative; ``geometric_weights_np`` and ``solve_steepness`` are numpy copies
 and agree bit for bit. Ranks come from stable sorts, as ``jnp.argsort`` is
-stable, so tied latencies rank replicas by index in both packages.
+stable, so tied latencies rank replicas by index in both packages; the sort
+runs on canonical keys (-0.0 as +0.0, every NaN last), so that the card
+orders such values as the CPU and ``jnp.argsort`` do.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import default_device
+from repro_torch.kernels.quorum_commit import sort_keys
 
 # Steepness bounds from the paper (§3.2): R in [1.0, 2.0].
 R_MIN = 1.0
@@ -170,13 +173,20 @@ def solve_steepness(n: int, t: int, *, tol: float = 1e-9) -> float:
     return max(R_MIN, lo * (1.0 - 1e-6))
 
 
+def _by_rank(latency: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``values[rank]`` for each replica along the last axis (rank 0 =
+    fastest): ``values`` scattered through the order, so that no rank
+    tensor is formed. Ties rank by replica index, as the stable
+    ``jnp.argsort`` does, on every device: -0.0 ties with +0.0 and NaN ranks
+    last (:func:`sort_keys`)."""
+    order = torch.sort(sort_keys(latency), dim=-1, stable=True).indices
+    out = torch.empty(order.shape, dtype=values.dtype, device=latency.device)
+    return out.scatter_(-1, order, values.expand_as(order))
+
+
 def _ranks(latency: torch.Tensor) -> torch.Tensor:
-    """Rank (0 = fastest) of each replica along the last axis; ties rank by
-    replica index, as the stable ``jnp.argsort`` does."""
-    order = torch.sort(latency, dim=-1, stable=True).indices
-    positions = torch.arange(latency.shape[-1], device=latency.device)
-    return torch.empty_like(order).scatter_(
-        -1, order, positions.expand_as(order))
+    """Rank (0 = fastest) of each replica along the last axis."""
+    return _by_rank(latency, torch.arange(latency.shape[-1], device=latency.device))
 
 
 # ---------------------------------------------------------------------------
@@ -232,8 +242,7 @@ class WeightTracker:
         Fastest (lowest EMA) replica per object gets the highest weight.
         """
         n = self.latency_ema.shape[-1]
-        base = geometric_weights(n, r, device=self.latency_ema.device)
-        return base[self.ranks()]
+        return _by_rank(self.latency_ema, geometric_weights(n, r, device=self.latency_ema.device))
 
     def ranks(self) -> torch.Tensor:
         """Rank (0 = fastest) of each replica per object."""
@@ -246,9 +255,8 @@ def node_weights_from_latency(latency_ema: torch.Tensor, r: float
 
     ``latency_ema``: (n,) cross-object replica latency EMA.
     """
-    base = geometric_weights(latency_ema.shape[-1], r,
-                             device=latency_ema.device)
-    return base[_ranks(latency_ema)]
+    return _by_rank(latency_ema, geometric_weights(latency_ema.shape[-1], r,
+                                                   device=latency_ema.device))
 
 
 def _table(rs: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

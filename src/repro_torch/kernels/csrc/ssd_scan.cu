@@ -62,9 +62,7 @@
 //     them): 123 with a bf16 x, 120 with a float32 x, under the 128 that two
 //     blocks of 256 threads an SM allow; no spills.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tc_tf32.cuh"
 
 namespace {
 
@@ -72,8 +70,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDim = 128;  // largest Q, hp and N
 constexpr int kGroup = 4;     // 8-column output tiles per warp unit
-
-__host__ __device__ __forceinline__ int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 struct Layout {  // shared-memory carve-up, in bytes
   int QP;        // Q padded to 16 rows
@@ -98,81 +94,6 @@ struct Layout {  // shared-memory carve-up, in bytes
   }
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo, each a TF32 value
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// d += a b for one m16n8k8 tile: TF32 inputs, float32 accumulators
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a b in the 3xTF32 split
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ahi)[4],
-                                           const uint32_t (&alo)[4], uint32_t bhi0,
-                                           uint32_t bhi1, uint32_t blo0, uint32_t blo1) {
-  mma_tf32(d, alo, bhi0, bhi1);
-  mma_tf32(d, ahi, blo0, blo1);
-  mma_tf32(d, ahi, bhi0, bhi1);
-}
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// dst[r][c] = src[r * stride + c] for r < rows, c < cols, and 0 elsewhere in
-// [0, rows_pad) x [0, cols_pad), row pitch `pitch`; by 16-byte cp.async when
-// `vec` (cols and stride multiples of 16 bytes, src aligned), else by plain
-// loads.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int pitch, const T* src, int64_t stride,
-                                      int rows, int cols, int rows_pad, int cols_pad,
-                                      bool vec) {
-  if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    const int chunks = cols_pad / kVec;
-    for (int c = threadIdx.x; c < rows_pad * chunks; c += kThreads) {
-      const int r = c / chunks, e = (c % chunks) * kVec;
-      const bool valid = r < rows && e < cols;
-      cp_async16(dst + r * pitch + e, src + (valid ? r * stride + e : 0), valid);
-    }
-  } else {
-    for (int c = threadIdx.x; c < rows_pad * cols_pad; c += kThreads) {
-      const int r = c / cols_pad, e = c % cols_pad;
-      dst[r * pitch + e] = r < rows && e < cols ? src[r * stride + e] : T(0.0f);
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2) ssd_intra_chunk_kernel(
     const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ seg,
@@ -195,8 +116,8 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_intra_chunk_kernel(
   const int Nc = round_up(N, 8);
 
   // B and C of the chunk, zero-padded
-  stage<float>(bs, NP, bm + bc * Q * N, N, Q, N, QP, Nc, vec_bc);
-  stage<float>(cs, lay.CP, cm + bc * Q * N, N, Q, N, QP, Nc, vec_bc);
+  stage<kThreads, float>(bs, NP, bm + bc * Q * N, N, Q, N, QP, Nc, vec_bc);
+  stage<kThreads, float>(cs, lay.CP, cm + bc * Q * N, N, Q, N, QP, Nc, vec_bc);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -229,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_intra_chunk_kernel(
   // head loads: x rows (zero-padded to QP x round16(hp)), seg and dt
   auto load_head = [&](int h, int buf) {
     T* xs = reinterpret_cast<T*>(smem_raw + lay.r0 + buf * lay.xbuf);
-    stage<T>(xs, XP, x + (bc * Q * nh + h) * hp, static_cast<int64_t>(nh) * hp, Q, hp, QP,
+    stage<kThreads, T>(xs, XP, x + (bc * Q * nh + h) * hp, static_cast<int64_t>(nh) * hp, Q, hp, QP,
              round_up(hp, 16), vec_x);
     float* sv = vecs + buf * 2 * QP;
     for (int j = tid; j < QP; j += kThreads) {

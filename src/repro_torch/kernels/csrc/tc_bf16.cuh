@@ -1,6 +1,6 @@
 // bf16 tensor-core helpers shared by K2's forward (flash_attention.cu) and
-// its backward (flash_attention_bwd.cu): shared-memory addresses, cp.async
-// copies, ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product with
+// its backward (flash_attention_bwd.cu), beside the cp.async copies of
+// cp_async.cuh: ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product with
 // float32 accumulators, ex2.approx and bf16 packing.
 //
 // Fragment layouts of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kTcWarps = 4;
@@ -27,23 +29,6 @@ constexpr int kTcThreads = kTcWarps * 32;
 
 template <int HD>
 __host__ __device__ constexpr int tc_pitch() { return HD + 8; }  // bf16 elements per smem row: +16 bytes
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

@@ -54,6 +54,19 @@ def _check_shapes(arrivals, weights, threshold) -> None:
                          f"got {tuple(threshold.shape)}")
 
 
+def sort_keys(t: torch.Tensor) -> torch.Tensor:
+    """float32 keys whose stable sort orders ``t`` as ``jnp.argsort`` does on
+    every device: -0.0 becomes +0.0 (adding +0.0 changes nothing else) and
+    every NaN, of either sign and any payload, one positive NaN, which sorts
+    after +inf. ``torch.sort`` on the card may order the raw values otherwise
+    (-0.0 before +0.0, -NaN first); on the canonical keys every sort agrees.
+    The keys stay 32 bits wide, so a radix sort takes no more passes;
+    forming them takes two elementwise passes (the add, then the NaN map in
+    place)."""
+    inf = float("inf")
+    return (t + 0.0).nan_to_num_(nan=float("nan"), posinf=inf, neginf=-inf)
+
+
 def quorum_commit(arrivals: torch.Tensor, weights: torch.Tensor,
                   threshold: torch.Tensor | None = None, *,
                   members: bool = False):
@@ -73,8 +86,10 @@ def quorum_commit_plain(arrivals: torch.Tensor, weights: torch.Tensor,
     _check_shapes(arrivals, weights, threshold)
     if threshold is None:
         threshold = torch.sum(weights, dim=-1) / 2.0
-    # stable: tied arrivals keep replica order, as jnp.argsort does
-    t_sorted, order = torch.sort(arrivals, dim=-1, stable=True)
+    # stable on canonical keys: tied arrivals (-0.0 with +0.0, NaN with NaN)
+    # keep replica order, as jnp.argsort does; the values are the arrivals'
+    order = torch.sort(sort_keys(arrivals), dim=-1, stable=True).indices
+    t_sorted = torch.gather(arrivals, -1, order)
     w_sorted = torch.gather(weights, -1, order)
     voted = torch.isfinite(t_sorted)
     # votes that never arrive contribute no weight

@@ -15,8 +15,14 @@ For the intra-chunk block:
     run on the TF32 tensor cores in the 3xTF32 split (each float32 operand
     as the sum of two TF32 values), which keeps float32 accuracy;
   * :func:`ssd_intra_chunk_bwd_cuda` launches K3's backward,
-    ``csrc/ssd_scan_bwd.cu``, on float32 CUDA cores. The JAX package has no
-    Pallas backward: it differentiates ``repro.models.mamba2.ssd_chunked``;
+    ``csrc/ssd_scan_bwd.cu``, over the lower triangle only: Mᵀ dy, B dSᵀ,
+    x dS, dC and dB on the TF32 tensor cores in the same 3xTF32 split, dy xᵀ
+    and C Bᵀ in float64 on the tensor cores, each entry rounded once to
+    float32 (ddt and dseg, small differences of large sums, miss 1e-4 of a
+    float64 evaluation when those two products carry float32's rounding
+    error, as :func:`ssd_intra_chunk_bwd_plain`'s do). The JAX
+    package has no Pallas backward: it differentiates
+    ``repro.models.mamba2.ssd_chunked``;
   * :func:`ssd_intra_chunk_plain` is the plain PyTorch version, the
     intra-chunk terms of ``repro.models.mamba2.ssd_chunked``, and
     :func:`ssd_intra_chunk_bwd_plain` the closed form of its gradient, which
@@ -46,7 +52,7 @@ from repro_torch.kernels import _build
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
 HEADS_PER_BLOCK = 32     # heads that share one C Bᵀ in the kernel
-BWD_HEADS_PER_BLOCK = 8  # heads whose dC Bᵀ one block of the backward sums
+BWD_HEADS_PER_BLOCK = 32 # heads whose dC Bᵀ one block of the backward sums
 
 # Kernel launches made by ssd_intra_chunk_cuda and ssd_intra_chunk_bwd_cuda
 # since the counts were last reset.
@@ -92,8 +98,9 @@ def ssd_intra_chunk_bwd_plain(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
 
     Takes its inputs and the gradients of its three outputs (``dy``
     (B,nc,Q,nh,hp), ``dstate`` (B,nc,nh,hp,N), ``ddecay`` (B,nc,nh)) and
-    returns ``(dx, ddt, dseg, dBm, dCm)``: dx in x's dtype, the rest in
-    float32. Per (b, c, h), with CB = C Bᵀ, L_ij = exp(seg_i - seg_j) and
+    returns ``(dx, ddt, dseg, dBm, dCm)``: dx in x's dtype, the rest in dt's
+    (float32 on the kernels' path; float64 inputs give a float64
+    evaluation). Per (b, c, h), with CB = C Bᵀ, L_ij = exp(seg_i - seg_j) and
     M_ij = CB_ij L_ij dt_j for i >= j, w_j = exp(seg_last - seg_j) dt_j and
     dS = dstate:
 
@@ -106,7 +113,7 @@ def ssd_intra_chunk_bwd_plain(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
       dCB_ij = sum_h dM_ij L_ij dt_j;  dC = dCB B;
       dB = dCBᵀ C + sum_h w_j x_jᵀ dS
     """
-    xf = x.float()
+    xf = x.to(dt.dtype)
     Lmat = _decay(seg)                                        # (B,nc,Q,Q,nh)
     CB = torch.einsum("bcin,bcjn->bcij", Cm, Bm)              # (B,nc,Q,Q)
     dt_j = dt[:, :, None, :, :]                               # (B,nc,1,Q,nh)

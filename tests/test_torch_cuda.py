@@ -110,6 +110,50 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The rank sort on the card: the port sorts canonical keys
+# (quorum_commit.sort_keys), so on rows with -0.0 beside +0.0, NaN and -NaN
+# the card ranks and orders exactly as the CPU, whose order is jnp.argsort's
+# (tests/test_torch_weights.py): ±0 tie in replica order, NaN last. n covers
+# each of torch.sort's regimes on the card (up to 128, up to 4096, above).
+# ---------------------------------------------------------------------------
+
+from _signed_rows import signed_rows  # noqa: E402
+from repro_torch.core import weights as W  # noqa: E402
+
+TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.mark.parametrize("n", [2, 9, 33, 200, 5000])
+def test_rank_sort_on_the_card_equals_the_cpu(cuda, n):
+    ema = torch.from_numpy(signed_rows(np.random.default_rng(n), 4 if n > 1000 else 300, n))
+    want = W._ranks(ema)
+    assert torch.equal(W._ranks(ema.to(cuda)).cpu(), want)
+    on_card = W.WeightTracker(latency_ema=ema.to(cuda))
+    on_cpu = W.WeightTracker(latency_ema=ema.clone())
+    assert torch.equal(on_card.ranks().cpu(), on_cpu.ranks())
+    r = 1.4 if n < 64 else 1.05
+    torch.testing.assert_close(on_card.weights(r).cpu(), on_cpu.weights(r), rtol=1e-6,
+                               atol=TINY)
+    for row in ema[:4]:
+        torch.testing.assert_close(W.node_weights_from_latency(row.to(cuda), r).cpu(),
+                                   W.node_weights_from_latency(row, r), rtol=1e-6, atol=TINY)
+    row = torch.tensor([0.0, -0.0, float("nan"), 1.0, -float("nan"), -0.0, 0.0, 2.0])
+    assert W._ranks(row.to(cuda)).cpu().argsort().tolist() == [0, 1, 5, 6, 3, 7, 2, 4]
+
+
+@pytest.mark.parametrize("n", [9, 200, 1024])
+def test_plain_k1_on_the_card_orders_signed_zeros_and_nan_as_the_cpu(cuda, n):
+    a, w, thr = tie_inputs(np.random.default_rng(n), 700, n, cuda)
+    a[torch.rand(a.shape, device=cuda) < 0.05] = -float("nan")
+    for th in (None, thr):
+        got = qc.quorum_commit_plain(a, w, th, members=True)
+        want = qc.quorum_commit_plain(a.cpu(), w.cpu(), None if th is None else th.cpu(),
+                                      members=True)
+        assert_equal_results(tuple(x.cpu() for x in got), want)
+        assert torch.equal(got[0].cpu().view(torch.int32), want[0].view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # K2 (flash attention) and K3 (SSD intra-chunk) against their plain versions.
 # float32 at 1e-4 (the same float32 arithmetic summed in another order; the
 # plain side's matrix products without TF32), bfloat16 at 2e-2 (the plain

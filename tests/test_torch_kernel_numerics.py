@@ -10,6 +10,13 @@ here, in plain torch, against the same limits the card holds them to:
   (two products where one side is a bf16 x, which TF32 holds exactly). That
   stays within ``hold_k3``'s 1e-4 of ``ssd_intra_chunk_plain``; one TF32
   product of rounded operands does not, so the limit tells the two apart.
+* K3's backward runs its per-head products (Mᵀ dy, B dSᵀ, x dS) and dC, dB
+  in the same split, each mma's sum rounded toward zero as the tensor cores
+  do, and C Bᵀ and dM = dy xᵀ in float64, each entry rounded once to
+  float32. It stays within ``hold_k3_backward``'s 1e-4 of
+  ``ssd_intra_chunk_bwd_plain`` evaluated in float64 (float32 gradients)
+  and its bf16 row rule; single TF32 products miss it by far, and so do
+  C Bᵀ and dM in 3xTF32, over enough gradients.
 * K2 in bf16 rounds its unnormalised probabilities P to bf16, tile by tile
   of 64 keys, for the P V product, and sums the rounded P. Measured as each
   output row's error over the row's magnitude against float32 on the same
@@ -135,6 +142,178 @@ def test_k3_single_tf32_fails_the_float32_limit(B, nc, Q, nh, hp, N, xdtype):
         torch.testing.assert_close(y, want, atol=K3_TOL, rtol=K3_TOL)
     # and by far: the largest error is many times the limit
     assert (y - want).abs().max() > 10 * K3_TOL
+
+
+# ---------------------------------------------------------------------------
+# K3's backward (csrc/ssd_scan_bwd.cu), product by product as the kernels
+# issue them. In TF32, mma.sync m16n8k8 over k in steps of 8,
+# each step's TF32 products (lo.hi, hi.lo, then hi.hi in the 3xTF32 split;
+# the bf16 x exact, against dS's lo then hi) added to the float32
+# accumulator one mma at a time. The tensor cores form each mma's sum
+# exactly and round it toward zero (the accumulation studies of NVIDIA's
+# tensor cores report truncation), which is emulated here; a chain of them
+# is biased toward zero. In TF32: per head T = B dSᵀ (each k step's
+# products from zero, added in float32), dw_j =
+# x_j . T_j and dx's state part w_j T_j; R = x dS and dB's state part
+# w_j R_j summed over heads; dx = w T + Mᵀ dy in the same accumulator; per
+# chunk dC = dC Bᵀ B and dB = dC Bᵀᵀ C + (the state part). In float64 on the
+# tensor cores, each entry rounded once to float32: C Bᵀ and dM = dy xᵀ,
+# whose rounding carries most of ddt's and dseg's error against a float64
+# evaluation. Formed in 3xTF32 instead, ddt's worst error comes to about
+# five times the design's, and crosses the limit only somewhere in some
+# 10^5 gradients (the largest error over many small ones): on the card, over
+# the training shape's 524,288, the 3xTF32 kernel missed by 1.56 times the
+# limit; here, 98,304 gradients in three draws show a miss (by 1.33), a
+# single draw of 32,768 shows one only now and then. Then one exp
+# per (i, j) for L, shared by M = C Bᵀ L dt_j, K = dM C Bᵀ L and dC Bᵀ's
+# dM L dt_j; the column sums of K in float64, the row sums and the dseg
+# difference in float32.
+# ---------------------------------------------------------------------------
+
+
+def round_toward_zero(x64: torch.Tensor) -> torch.Tensor:
+    """float64 to float32, rounded toward zero."""
+    f = x64.float()
+    return torch.where(f.double().abs() > x64.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mma_chain(eq, a, b, a_exact=False, b_exact=False, split=True, acc=None, fresh=False):
+    """einsum ``eq`` (one contracted index) as a chain of tensor-core
+    products: per k step of 8 the TF32 products, in the kernels' order, each
+    added to the float32 accumulator (``acc``, else zeros) exactly and
+    rounded toward zero. ``split``: 3xTF32 (two products with an exact
+    side), else one product of rounded operands. ``fresh``: each k step's
+    products start from zero, and the step is added to ``acc`` in float32."""
+    ins, out = eq.split("->")
+    ea, eb = ins.split(",")
+    k = next(c for c in ea if c in eb and c not in out)
+    ia, ib, K = ea.index(k), eb.index(k), a.shape[ea.index(k)]
+    for k0 in range(0, K, 8):
+        ac, bc = a.narrow(ia, k0, min(8, K - k0)), b.narrow(ib, k0, min(8, K - k0))
+        if split:
+            ah, al = (ac.float(), None) if a_exact else halves(ac)
+            bh, bl = (bc.float(), None) if b_exact else halves(bc)
+            pairs = [(x, y) for x, y in ((al, bh), (ah, bl), (ah, bh))
+                     if x is not None and y is not None]
+        else:
+            pairs = [(ac.float() if a_exact else tf32(ac), bc.float() if b_exact else tf32(bc))]
+        step = None if fresh else acc
+        for x, y in pairs:
+            term = torch.einsum(eq, x.double(), y.double())
+            step = round_toward_zero((0.0 if step is None else step.double()) + term)
+        acc = (step if acc is None else acc + step) if fresh else step
+    return acc
+
+
+def ssd_bwd_emulated(x, dt, seg, Bm, Cm, dy, dstate, ddecay, split: bool,
+                     float64_products: bool = True):
+    """(dx, ddt, dseg, dB, dC) as K3's backward kernels compute them, their
+    TF32 products split (``split``) or single. ``float64_products``: C Bᵀ
+    and dM in float64, rounded once, as the kernel forms them; else as TF32
+    products too."""
+    Q = x.shape[2]
+    x_exact = x.dtype == torch.bfloat16
+    xf = x.float()
+    if float64_products:
+        CB = torch.einsum("bcin,bcjn->bcij", Cm.double(), Bm.double()).float()
+        dM = torch.einsum("bcihp,bcjhp->bcijh", dy.double(), xf.double()).float()
+    else:
+        CB = mma_chain("bcin,bcjn->bcij", Cm, Bm, split=split)
+        dM = mma_chain("bcihp,bcjhp->bcijh", dy, xf, b_exact=x_exact, split=split)
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]      # (B,nc,i,j,nh)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    dt_j = dt[:, :, None, :, :]
+    e = torch.exp(seg[:, :, -1:, :] - seg)
+    w = e * dt
+    T = mma_chain("bcjn,bchpn->bcjhp", Bm, dstate, split=split, fresh=True)
+    dw = (xf * T).sum(-1)
+    R = mma_chain("bcjhp,bchpn->bcjhn", xf, dstate, a_exact=x_exact, split=split)
+    M = CB[..., None] * (L * dt_j)
+    dx = mma_chain("bcijh,bcihp->bcjhp", M, dy, split=split, acc=w[..., None] * T)
+    K = dM * CB[..., None] * L
+    colK = K.double().sum(2).float()
+    ddt = colK + dw * e
+    dseg = (K * dt_j).sum(3) - dt * colK - dw * w
+    last = (dw * w).sum(2) + ddecay * torch.exp(seg[:, :, -1, :])
+    dseg = torch.cat([dseg[:, :, :-1], dseg[:, :, -1:] + last[:, :, None]], dim=2)
+    dCB = (dM * (L * dt_j)).sum(-1)
+    dC = mma_chain("bcij,bcjn->bcin", dCB, Bm, split=split)
+    dB = mma_chain("bcij,bcin->bcjn", dCB, Cm, split=split) + (w[..., None] * R).sum(3)
+    return dx.to(x.dtype), ddt, dseg, dB, dC
+
+
+def ssd_output_grads(seed, B, nc, Q, nh, hp, N):
+    """Gradients of y, state and decay (``chip_smoke.ssd_output_grads``)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((B, nc, Q, nh, hp), (B, nc, nh, hp, N), (B, nc, nh))]
+
+
+def k3_backward_over(got, args, grads):
+    """Each gradient's largest error over ``chip_smoke.hold_k3_backward``'s
+    limit: float32 ones at atol/rtol 1e-4 against the plain closed form
+    evaluated in float64, a bf16 dx by the row rule (its worst row error
+    against the plain backward run on the same values in float32 over twice
+    the bf16 plain one's, or one bf16 ulp). Above 1 is a miss."""
+    want = ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
+    exact = ssd.ssd_intra_chunk_bwd_plain(*(t.double() for t in (*args, *grads)))
+    over = {}
+    for name, g, w, e in zip(("dx", "ddt", "dseg", "dB", "dC"), got, want, exact):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all(), name
+        if g.dtype == torch.float32:
+            over[name] = float(((g.double() - e).abs() / (K3_TOL + K3_TOL * e.abs())).max())
+    if args[0].dtype == torch.bfloat16:
+        ref = ssd.ssd_intra_chunk_bwd_plain(args[0].float(), *args[1:], *grads)[0]
+        over["dx"] = row_err(got[0], ref) / max(2 * row_err(want[0], ref), 2.0 ** -8)
+    return over
+
+
+def k3_backward_misses(got, args, grads):
+    """The gradients that miss ``hold_k3_backward``'s contract: {name: largest
+    error over the limit}."""
+    return {k: v for k, v in k3_backward_over(got, args, grads).items() if v > 1.0}
+
+
+K3_BWD_SHAPES = [(1, 1, 128, 2, 64, 64, torch.bfloat16),   # zamba2's chunk, two heads
+                 (1, 2, 128, 1, 64, 128, torch.bfloat16),  # mamba2-780m's N
+                 (1, 1, 128, 2, 128, 128, torch.float32),  # hp = N = Q = 128, float32 x
+                 (1, 1, 33, 3, 12, 20, torch.float32),     # ragged tiles
+                 (2, 1, 64, 2, 32, 16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES)
+def test_k3_backward_3xtf32_split_holds_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N + nh, B, nc, Q, nh, hp, N, xdtype)
+    grads = ssd_output_grads(Q + hp, B, nc, Q, nh, hp, N)
+    got = ssd_bwd_emulated(*args, *grads, split=True)
+    assert k3_backward_misses(got, args, grads) == {}
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES)
+def test_k3_backward_single_tf32_fails_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N + nh, B, nc, Q, nh, hp, N, xdtype)
+    grads = ssd_output_grads(Q + hp, B, nc, Q, nh, hp, N)
+    misses = k3_backward_misses(ssd_bwd_emulated(*args, *grads, split=False), args, grads)
+    # and by far: some float32 gradient misses by many times its limit
+    assert max(misses.values(), default=0.0) > 10, misses
+
+
+def test_k3_backward_3xtf32_cb_and_dm_miss_the_limit():
+    """C Bᵀ and dM in 3xTF32 (each mma's sum truncated) instead of rounded
+    once from float64: over three draws at zamba2's chunk with 32 heads, ddt
+    or dseg misses the float64 1e-4, where the design stays within half of
+    it. The other gradients do not depend on the choice."""
+    shape = (2, 4, 128, 32, 64, 64)
+    worst = {True: 0.0, False: 0.0}
+    for seed in range(3):
+        args = ssd_inputs(seed, *shape, torch.bfloat16)
+        grads = ssd_output_grads(seed + 100, *shape)
+        for float64_products in worst:
+            got = ssd_bwd_emulated(*args, *grads, split=True, float64_products=float64_products)
+            over = k3_backward_over(got, args, grads)
+            worst[float64_products] = max(worst[float64_products], over["ddt"], over["dseg"])
+    assert worst[False] > 1.0 and worst[True] < 0.5, worst
 
 
 def flash_emulated(q, k, v, causal: bool):

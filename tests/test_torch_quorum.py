@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from _hypothesis_compat import given, settings, st  # noqa: E402
+from _signed_rows import signed_rows  # noqa: E402
 
 from repro.core import quorum as JQ  # noqa: E402
 from repro.core import weights as JW  # noqa: E402
@@ -59,6 +60,32 @@ def test_quorum_commit_matches_jax_with_ties(n, with_threshold):
     th_j = jnp.asarray(thr) if with_threshold else None
     res = quorum_commit(torch.from_numpy(a), torch.from_numpy(w), th_t)
     assert_matches_jax(res, JQ.quorum_commit(jnp.asarray(a), jnp.asarray(w), th_j))
+
+
+@pytest.mark.parametrize("n", [1, 3, 9, 33, 200])
+def test_quorum_commit_orders_signed_zeros_and_nan_as_jax(n):
+    """-0.0 beside +0.0, NaN and -NaN arrivals: the plain version sorts
+    canonical keys, so ±0 tie in replica order and NaN (no vote) comes last,
+    as jnp.argsort orders them; commit_time keeps the sign of the arrival
+    that crossed, so its bits show which replica that was."""
+    rng = np.random.default_rng(n)
+    a = signed_rows(rng, 400, n, high=3, inf=False)
+    # integer weights with one odd half: prefix sums are exact, none equals T
+    w = rng.integers(1, 9, (400, n)).astype(np.float32)
+    w[:, 0] += 0.5
+    res = quorum_commit(torch.from_numpy(a), torch.from_numpy(w))
+    ref = JQ.quorum_commit(jnp.asarray(a), jnp.asarray(w))
+    assert_matches_jax(res, ref)
+    np.testing.assert_array_equal(res.commit_time.numpy().view(np.int32),
+                                  np.asarray(ref.commit_time).view(np.int32))
+    # a pinned row: +0.0 at replica 0 ties with -0.0 at replica 1, so replica
+    # 0 comes first (1 is not > T = 3), then replica 1 crosses (4) at -0.0
+    row = torch.tensor([[0.0, -0.0, float("nan"), 1.0]])
+    got = quorum_commit(row, torch.tensor([[1.0, 3.0, 1.0, 1.0]]))
+    ref = JQ.quorum_commit(jnp.asarray(row.numpy()), jnp.asarray([[1.0, 3.0, 1.0, 1.0]]))
+    assert int(got.quorum_size[0]) == 2 and np.signbit(got.commit_time.numpy()[0])
+    assert_matches_jax(got, ref)
+    assert np.signbit(np.asarray(ref.commit_time)[0])
 
 
 def test_quorum_commit_casts_float64_and_1d_like_jax():

@@ -120,6 +120,54 @@ def test_weight_tracker_init_and_node_weights_match_jax():
 
 
 # ---------------------------------------------------------------------------
+# the order of -0.0 and NaN: the port sorts canonical keys (kernels.
+# quorum_commit.sort_keys), which keep the CPU's order equal to jnp.argsort's
+# (±0 tie in replica order, every NaN last in replica order); the card's
+# sort gets the same keys (tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+from _signed_rows import signed_rows  # noqa: E402
+from repro_torch.kernels.quorum_commit import sort_keys  # noqa: E402
+
+NAN = np.float32("nan")
+
+
+def test_sort_keys_order_the_roadmap_row_as_jnp_argsort():
+    row = np.array([0, -0.0, NAN, 1, -NAN, -0.0, 0, 2], np.float32)
+    assert np.signbit(row[4]) and np.isnan(row[4])
+    want = [0, 1, 5, 6, 3, 7, 2, 4]
+    np.testing.assert_array_equal(np.asarray(jnp.argsort(jnp.asarray(row))), want)
+    t = torch.from_numpy(row)
+    np.testing.assert_array_equal(torch.sort(sort_keys(t), stable=True).indices.numpy(), want)
+    keys = sort_keys(t).numpy()
+    assert not np.signbit(keys[[0, 1, 5, 6]]).any()          # -0.0 is now +0.0
+    assert np.isnan(keys[[2, 4]]).all() and not np.signbit(keys[[2, 4]]).any()
+    np.testing.assert_array_equal(keys[[3, 7]], row[[3, 7]])
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 33, 200])
+def test_ranks_of_signed_zeros_and_nan_match_jax(n):
+    ema = signed_rows(np.random.default_rng(n), 64, n)
+    t = torch.from_numpy(ema)
+    order = np.asarray(jnp.argsort(jnp.asarray(ema), axis=-1))
+    np.testing.assert_array_equal(torch.sort(sort_keys(t), dim=-1, stable=True).indices.numpy(),
+                                  order)
+    jt = JW.WeightTracker(latency_ema=jnp.asarray(ema))
+    pt = W.WeightTracker(latency_ema=t.clone())
+    want = np.asarray(jt.ranks())
+    np.testing.assert_array_equal(W._ranks(t).numpy(), want)
+    np.testing.assert_array_equal(pt.ranks().numpy(), want)
+    r = 1.4 if n < 64 else 1.05
+    np.testing.assert_allclose(pt.weights(r).numpy(), np.asarray(jt.weights(r)),
+                               rtol=1e-6, atol=TINY)
+    for row in ema[:8]:
+        np.testing.assert_allclose(
+            W.node_weights_from_latency(torch.from_numpy(row), r).numpy(),
+            np.asarray(JW.node_weights_from_latency(jnp.asarray(row), r)),
+            rtol=1e-6, atol=TINY)
+
+
+# ---------------------------------------------------------------------------
 # the cases of tests/test_weights.py, replayed on the port
 # ---------------------------------------------------------------------------
 
