@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
-drives the weighted-quorum data plane, zamba2-1.2b serving, qwen3-1.7b
-serving, and qwen3-1.7b and zamba2-1.2b training at full size, and times
-them.
+drives the weighted-quorum data plane, zamba2-1.2b, qwen3-1.7b,
+granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b and
+zamba2-1.2b training at full size, and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
@@ -32,7 +32,12 @@ Phases, each of which raises on failure so that the script exits non-zero:
      back to back, after the host slept and after a synchronise that waited
      for the device, as long as a weights phase;
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
-     versions on the card, ragged edges of their tensor-core tiles included;
+     versions on the card, ragged edges of their tensor-core tiles included,
+     and K2 with keys of their own length (cross-attention at the seamless
+     prefill's shape, a ragged GQA pair, one query, one key; twice, bit for
+     bit) and the seamless encoder's non-causal self-attention; K2 raising,
+     with no launch, for causal attention with Sk != S and where a gradient
+     is wanted with Sk != S;
      K3's backward kernel against its closed-form plain version evaluated
      in float64 on the same cases, and a gradient of ``ssd_chunked`` with any of x, dt, A, Bm, Cm
      requiring one launching K3 once and its backward exactly once, equal
@@ -62,12 +67,20 @@ Phases, each of which raises on failure so that the script exits non-zero:
      moments); a qwen3 step must launch K2's backward 56 times, a zamba2
      step K3's backward 76 times, K3 152, K2's backward 12 and K2 24; each
      step with its garbage collections, allocator calls and retries, and
-     the card's clock, power and throttle reasons beside it;
+     the card's clock, power and throttle reasons beside it; then the smoke
+     granite-moe, qwen3-moe, seamless-m4t and internvl2 (float32) served on
+     the card against the CPU (prefill and 3 decode steps, logits and caches
+     at 1e-4, equal greedy tokens, the MoE router's choice sets equal
+     wherever no near-tie is reported), and, as in 5, granite-moe-3b-a800m
+     (K2 32 times in the prefill, not in decode) and seamless-m4t-medium with
+     512 frames a request (K2 36 times in the prefill: 12 encoder, 12
+     decoder, 12 cross; 12 times a decode step, the cross-attention of one
+     query against the 512 cached frames);
  10. kernel times beside the plain version's, the bound and the library's,
      as one JSON line {"kernels": [...]}: the kernel's device time
      (torch.profiler), the time per call through the wrapper and of the plain
      version (CUDA events over back-to-back calls, so host overhead
-     included);
+     included); K2 also at the seamless prefill's cross-attention shape;
  11. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -107,6 +120,7 @@ from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -138,6 +152,15 @@ SERVE_PROMPT = 2048
 SERVE_DECODE = 32
 SMOKE_PROMPT = 64         # the small hybrid slice, card against CPU
 SMOKE_DECODE = 3
+# The moe, encdec and vlm families: the four smoke configs served card
+# against CPU; granite-moe-3b-a800m and seamless-m4t-medium served at full
+# size with the zamba2 traffic (seamless: 512 frames a request, S / 4).
+SMALL_FAMILIES = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+                  "seamless-m4t-medium", "internvl2-26b")
+MOE_ARCH = "granite-moe-3b-a800m"
+ENCDEC_ARCH = "seamless-m4t-medium"
+NEAR_TIE = 1e-5           # router probabilities closer than this may pick otherwise
+K2_CROSS_SHAPE = (8, 2048, 16, 16, 64, 512)   # seamless prefill: B, S, H, KV, hd, Sk
 
 # Dense paths: qwen3-1.7b as configured (28 layers, d 2048, bf16). Serving
 # takes the zamba2 traffic; training takes 5 steps of 8 x 2048 tokens.
@@ -674,9 +697,11 @@ def max_err(got, want) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def attention_inputs(gen, B, S, H, KV, hd, dtype):
+def attention_inputs(gen, B, S, H, KV, hd, dtype, Sk=None):
+    """q (B,S,H,hd) and k, v (B,Sk,KV,hd), Sk = S unless given."""
+    Sk = S if Sk is None else Sk
     return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
 
 
 def ssd_inputs(gen, B, nc, Q_, nh, hp, N, xdtype=torch.bfloat16):
@@ -746,13 +771,42 @@ def check_k2(gen) -> dict:
     # tiles and a ragged one), at every head dim but the main path's
     cases += [((1, 1, 2, 2, hd), torch.bfloat16, True) for hd in (16, 32, 128)]
     cases += [((1, 130, 8, 2, hd), torch.bfloat16, True) for hd in (16, 32, 128)]
+    # keys of their own length (B, S, H, KV, hd, Sk), non-causal: the
+    # seamless prefill's cross-attention, a ragged GQA pair, one query
+    # (decode) and one key; and the seamless encoder's self-attention. Each
+    # twice, bit for bit.
+    own = [K2_CROSS_SHAPE, (2, 77, 6, 2, 64, 300), (8, 1, 16, 16, 64, 512),
+           (2, 40, 4, 2, 32, 1)]
+    cases += [(shape, dtype, False) for shape in own
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases += [((8, 512, 16, 16, 64), torch.bfloat16, False)]
     errors = {}
     for shape, dtype, causal in cases:
-        q, k, v = attention_inputs(gen, *shape, dtype)
+        q, k, v = attention_inputs(gen, *shape[:5], dtype, *shape[5:])
         got = fa.flash_attention_cuda(q, k, v, causal=causal)
         torch.cuda.synchronize()
         errors[f"{shape} {str(dtype)[6:]} causal={causal}"] = hold_k2(got, q, k, v, causal)
-    print(f"K2 vs plain on the card, max abs error: {json.dumps(errors)}")
+        if not causal:
+            if not torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal)):
+                raise AssertionError(f"K2 at {shape} differs between two runs")
+    # causal needs Sk == S; no gradient for Sk != S (K2's backward is
+    # self-attention only), and nothing launched for either
+    q, k, v = attention_inputs(gen, 1, 16, 2, 2, 32, torch.float32, Sk=24)
+    before = (fa.launches, fa.bwd_launches)
+    try:
+        fa.flash_attention_cuda(q, k, v, causal=True)
+        raise AssertionError("K2 took causal attention with Sk != S")
+    except ValueError:
+        pass
+    try:
+        ops.flash_attention(q, k.requires_grad_(), v, causal=False)
+        raise AssertionError("K2 gave cross-attention where a gradient is wanted")
+    except NotImplementedError:
+        pass
+    if (fa.launches, fa.bwd_launches) != before:
+        raise AssertionError("K2 launched where it raised")
+    print(f"K2 vs plain on the card, max abs error: {json.dumps(errors)}; keys of their "
+          f"own length twice bit for bit; causal Sk != S and a wanted gradient raise")
     return errors
 
 
@@ -893,18 +947,21 @@ def check_k3(gen) -> dict:
     return {"forward": errors, "backward": bwd_errors, "ssd_chunked_grad": grad_errors}
 
 
-def serve_run(cfg, params, tokens, decode_steps, cache_len):
+def serve_run(cfg, params, batch, decode_steps, cache_len):
     """Prefill then greedy decode through the serving entry points; returns
-    the logits of every step and the tokens fed."""
+    the logits of every step, the tokens fed and the cache. Decode starts
+    after the prompt and any image prefix."""
     prefill = serve.make_prefill_step(cfg, cache_len=cache_len)
     decode = serve.make_decode_step(cfg)
+    tokens = batch["tokens"]
     B, S = tokens.shape
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     out, fed = [logits], []
     for i in range(decode_steps):
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         fed.append(tok)
-        pos = torch.full((B,), S + i, dtype=torch.int64, device=tokens.device)
+        pos = torch.full((B,), serve.prefix_len(cfg) + S + i, dtype=torch.int64,
+                         device=tokens.device)
         logits, cache = decode(params, cache, tok, pos)
         out.append(logits)
     return out, fed, cache
@@ -924,7 +981,7 @@ def check_small_hybrid(seed) -> float:
     launched = (fa.launches, ssd.launches)
     for device in ("cpu", "cuda"):
         on = L.tree_map(lambda t: t.to(device), params)
-        runs[device] = serve_run(cfg, on, tokens.to(device), SMOKE_DECODE,
+        runs[device] = serve_run(cfg, on, {"tokens": tokens.to(device)}, SMOKE_DECODE,
                                  SMOKE_PROMPT + SMOKE_DECODE + 1)
     torch.cuda.synchronize()
     if (fa.launches, ssd.launches) == launched:
@@ -942,6 +999,84 @@ def check_small_hybrid(seed) -> float:
     print(f"smoke zamba2 (float32) prefill + {SMOKE_DECODE} decode steps: card "
           f"equals CPU, logits max abs error {err!r}, greedy tokens equal")
     return err
+
+
+class RouteLog:
+    """While active, records each call of ``moe.route`` by the device it ran
+    on: the chosen experts and the router's probabilities, on the CPU."""
+
+    def __init__(self):
+        self.calls = {"cpu": [], "cuda": []}
+
+    def __enter__(self):
+        self._route = moe.route
+
+        def recording(params, cfg, xf):
+            top_p, top_e, probs = self._route(params, cfg, xf)
+            self.calls[xf.device.type].append((top_e.cpu(), probs.cpu()))
+            return top_p, top_e, probs
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+    def same_choices(self, top_k) -> int:
+        """Raise unless the card chose the CPU's expert sets for every token
+        whose k-th and (k+1)-th probabilities lie at least NEAR_TIE apart;
+        returns the count of near-tied tokens."""
+        card, cpu = self.calls["cuda"], self.calls["cpu"]
+        if len(card) != len(cpu) or not card:
+            raise AssertionError(f"router calls: {len(card)} on the card, {len(cpu)} on the CPU")
+        near = 0
+        for (got, _), (want, probs) in zip(card, cpu):
+            ranked = probs.sort(-1, descending=True).values
+            clear = (ranked[:, top_k - 1] - ranked[:, top_k]) >= NEAR_TIE
+            near += int((~clear).sum())
+            if not torch.equal(got.sort(-1).values[clear], want.sort(-1).values[clear]):
+                raise AssertionError("the card's router chose other experts than the CPU's")
+        return near
+
+
+def check_small_families(seed) -> dict:
+    """The smoke granite-moe, qwen3-moe, seamless-m4t and internvl2 in
+    float32, served on the card against the CPU: prefill plus SMOKE_DECODE
+    greedy decode steps, logits and every cache tensor at atol/rtol 1e-4,
+    equal greedy tokens; the MoE router's choice sets equal wherever no
+    near-tie is reported; K2 launched on the card."""
+    out = {}
+    for arch in SMALL_FAMILIES:
+        cfg = dataclasses.replace(configs.smoke(arch), param_dtype="float32",
+                                  compute_dtype="float32")
+        params = family(cfg).init_params(cfg, torch.Generator("cpu").manual_seed(seed),
+                                         device="cpu")
+        batch = serve.make_batch(cfg, torch.Generator("cpu").manual_seed(seed), 2,
+                                 SMOKE_PROMPT)
+        cache_len = serve.prefix_len(cfg) + SMOKE_PROMPT + SMOKE_DECODE + 1
+        runs, launched = {}, fa.launches
+        with RouteLog() as routes:
+            for device in ("cpu", "cuda"):
+                on = L.tree_map(lambda t: t.to(device), params)
+                runs[device] = serve_run(cfg, on, {k: t.to(device) for k, t in batch.items()},
+                                         SMOKE_DECODE, cache_len)
+            torch.cuda.synchronize()
+        if fa.launches == launched:
+            raise AssertionError(f"the smoke {arch} launched no K2 on the card")
+        err = 0.0
+        for step, (g, w) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{arch} step {step}: {m}")
+            err = max(err, max_err(g.cpu(), w))
+        for step, (g, w) in enumerate(zip(runs["cuda"][1], runs["cpu"][1])):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"{arch}: greedy tokens differ at decode step {step}")
+        err = max(err, assert_trees_close(runs["cuda"][2], runs["cpu"][2], f"{arch} cache"))
+        out[arch] = {"max_abs_err": err, "k2_launches": fa.launches - launched}
+        if cfg.family == "moe":
+            out[arch]["near_tied_tokens"] = routes.same_choices(cfg.top_k)
+    print(f"smoke moe, encdec and vlm families (float32), prefill + {SMOKE_DECODE} decode "
+          f"steps: card equals CPU, greedy tokens and router choices equal: {json.dumps(out)}")
+    return out
 
 
 # kernel name fragments -> the kind of work profile_device sums them under
@@ -998,37 +1133,58 @@ def reset_launch_counts() -> None:
     qc.launches = fa.launches = fa.bwd_launches = ssd.launches = ssd.bwd_launches = 0
 
 
+def expected_serve_launches(cfg) -> tuple[dict, dict]:
+    """The kernels' launches in a prefill of ``cfg`` and in one decode step:
+    K2 once an attention of the prefill (the encoder's, the decoder's and
+    the cross-attention of encdec), K3 once a Mamba layer; a decode step
+    launches K2 once a cross-attention (encdec) and nothing else."""
+    none = dict.fromkeys(launch_counts(), 0)
+    prefill, step = dict(none), dict(none)
+    if cfg.family == "hybrid":
+        prefill.update(flash_attention=cfg.n_layers // cfg.shared_attn_every,
+                       ssd_scan=cfg.n_layers)
+    elif cfg.family == "ssm":
+        prefill.update(ssd_scan=cfg.n_layers)
+    elif cfg.family == "encdec":
+        prefill.update(flash_attention=cfg.encoder_layers + 2 * cfg.n_layers)
+        step.update(flash_attention=cfg.n_layers)
+    else:                                   # dense, moe, vlm
+        prefill.update(flash_attention=cfg.n_layers)
+    return prefill, step
+
+
 def serving_path(arch, seed, name) -> dict:
-    """``arch`` at full width and depth: 8 x 2048-token prompts, then
-    SERVE_DECODE greedy decode steps, through the serving entry points.
-    The prefill must launch K3 once a Mamba layer and K2 once an attention
-    (zamba2: 38 and 6; qwen3: 0 and 28), decode neither."""
+    """``arch`` at full width and depth: 8 x 2048-token prompts (with the
+    family's stub frontend inputs: 512 frames a request for encdec, the image
+    embeddings for vlm), then SERVE_DECODE greedy decode steps, through the
+    serving entry points. The prefill and every decode step must launch the
+    kernels :func:`expected_serve_launches` counts (zamba2: K3 38 and K2 6;
+    qwen3: K2 28; granite-moe: K2 32; seamless: K2 36, and 12 a decode
+    step)."""
     cfg = configs.get(arch)
     fam = family(cfg)
-    hybrid = cfg.family == "hybrid"
-    cache_len = SERVE_PROMPT + SERVE_DECODE
+    prefix = serve.prefix_len(cfg)
+    cache_len = prefix + SERVE_PROMPT + SERVE_DECODE
     t0 = time.perf_counter()
     params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
                              device="cuda")
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        2, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT))).cuda()
+    batch = serve.make_batch(cfg, torch.Generator("cuda").manual_seed(seed),
+                             SERVE_BATCH, SERVE_PROMPT)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     prefill = serve.make_prefill_step(cfg, cache_len=cache_len)
     decode = serve.make_decode_step(cfg)
-    prefill(params, {"tokens": tokens})          # warm-up: cuBLAS plans, allocator
+    prefill(params, batch)                       # warm-up: cuBLAS plans, allocator
     torch.cuda.synchronize()
 
+    want, per_step = expected_serve_launches(cfg)
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     ttft_s = time.perf_counter() - t0
     prefill_launches = launch_counts()
-    want = {"quorum_commit": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
-            "flash_attention": fam.n_shared(cfg) if hybrid else cfg.n_layers,
-            "ssd_scan": cfg.n_layers if hybrid else 0}
     if prefill_launches != want:
         raise AssertionError(f"prefill launched {prefill_launches}, expected {want}")
     if logits.shape != (SERVE_BATCH, 1, cfg.vocab) or not torch.isfinite(logits).all():
@@ -1036,7 +1192,7 @@ def serving_path(arch, seed, name) -> dict:
     step_s = []
     tok = torch.argmax(logits[:, -1], -1)[:, None]
     for i in range(SERVE_DECODE):
-        pos = torch.full((SERVE_BATCH,), SERVE_PROMPT + i, dtype=torch.int64,
+        pos = torch.full((SERVE_BATCH,), prefix + SERVE_PROMPT + i, dtype=torch.int64,
                          device="cuda")
         t0 = time.perf_counter()
         logits, cache = decode(params, cache, tok, pos)
@@ -1046,13 +1202,18 @@ def serving_path(arch, seed, name) -> dict:
         if not torch.isfinite(logits).all():
             raise AssertionError(f"decode step {i}: logits not finite")
     after = launch_counts()
-    if after != prefill_launches:
-        raise AssertionError(f"decode launched kernels: {after} after {prefill_launches}")
+    want_after = {k: v + SERVE_DECODE * per_step[k] for k, v in prefill_launches.items()}
+    if after != want_after:
+        raise AssertionError(f"decode launched {after} after {prefill_launches}, expected "
+                             f"{want_after}")
     if not all(torch.isfinite(t).all() for t in cache.values()):
         raise AssertionError("decode cache not finite")
-    if cache["shared_k" if hybrid else "k"][:, :, :cache_len].abs().amax(
-            dim=(1, 3, 4)).min() == 0:
-        raise AssertionError("a KV cache position was never written")
+    written = {"shared_k": cache_len} if cfg.family == "hybrid" else {"k": cache_len}
+    if cfg.family == "encdec":
+        written["mk"] = SERVE_PROMPT // cfg.enc_len_ratio
+    for key, length in written.items():
+        if cache[key].shape[2] != length or cache[key].abs().amax(dim=(1, 3, 4)).min() == 0:
+            raise AssertionError(f"a position of the cache's {key!r} was never written")
     peak = torch.cuda.max_memory_allocated() / 2**30
     decode_s = sum(step_s)
     summary = {
@@ -1065,13 +1226,21 @@ def serving_path(arch, seed, name) -> dict:
         "decode_median_ms": 1e3 * float(np.median(step_s)),
         "decode_tokens_per_s": SERVE_BATCH * SERVE_DECODE / decode_s,
         "peak_mem_gib": peak, "launches": prefill_launches,
-        "profile": profile_device(lambda: prefill(params, {"tokens": tokens}),
+        "launches_per_decode_step": per_step, "cache_len": cache_len,
+        "decode_launches": {k: after[k] - prefill_launches[k] for k in after},
+        "profile": profile_device(lambda: prefill(params, batch),
                                   watch=("ssd_intra_chunk_kernel",
                                          "flash_attention_bf16_kernel")),
         "decode_profile": profile_device(lambda: decode(
             params, cache, tok, torch.full((SERVE_BATCH,), cache_len - 1,
-                                           dtype=torch.int64, device="cuda"))),
+                                           dtype=torch.int64, device="cuda")),
+                                         watch=("flash_attention_",)),
     }
+    if cfg.family == "moe":
+        summary["capacity"] = {"prefill": moe.capacity(cfg, SERVE_BATCH * SERVE_PROMPT),
+                               "decode": moe.capacity(cfg, SERVE_BATCH)}
+    if cfg.family == "encdec":
+        summary["frames"] = SERVE_PROMPT // cfg.enc_len_ratio
     print(f"serving {cfg.name}: {SERVE_BATCH} x {SERVE_PROMPT}-token prompts, "
           f"time to first token {ttft_s:.3f} s ({summary['prefill_tokens_per_s']:.0f} "
           f"tokens/s), decode {summary['decode_ms_per_step']:.2f} ms/step "
@@ -1251,7 +1420,7 @@ def check_small_dense(seed) -> dict:
     runs = {}
     for device in ("cpu", "cuda"):
         on = L.tree_map(lambda t: t.to(device), params)
-        runs[device] = serve_run(cfg, on, tokens.to(device), SMOKE_DECODE,
+        runs[device] = serve_run(cfg, on, {"tokens": tokens.to(device)}, SMOKE_DECODE,
                                  SMOKE_PROMPT + SMOKE_DECODE + 1)
     torch.cuda.synchronize()
     if fa.launches - fwd != cfg.n_layers:
@@ -1542,6 +1711,35 @@ def time_k2(gen) -> dict:
                   **errors, library_max_abs_err=lib_err)
 
 
+def time_k2_cross(gen) -> dict:
+    """K2 at the seamless prefill's cross-attention (2048 queries against 512
+    keys, non-causal): kernel, plain and SDPA times."""
+    B, S, H, KV, hd, Sk = K2_CROSS_SHAPE
+    q, k, v = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16, Sk=Sk)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # (B, H, S, hd) views
+
+    def kernel(i):
+        return fa.flash_attention_cuda(q, k, v, causal=False)
+
+    def plain(i):
+        return fa.flash_attention_plain(q, k, v, causal=False)
+
+    def library(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=False, enable_gqa=True)
+
+    got = kernel(0)
+    torch.cuda.synchronize()
+    errors = hold_k2(got, q, k, v, False)         # held at the path's shape
+    print(f"K2 vs plain at {list(K2_CROSS_SHAPE)} bf16: {json.dumps(errors)}")
+    lib_err = max_err(got, library(0).transpose(1, 2))
+    ops_ = 4 * B * H * hd * S * Sk                   # q k^T and p v, no mask
+    moved = 2 * (2 * B * S * H * hd + 2 * B * Sk * KV * hd)
+    return timing("flash_attention", list(K2_CROSS_SHAPE), kernel, plain, library,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  **errors, library_max_abs_err=lib_err)
+
+
 def time_k3(gen) -> dict:
     """K3 at the serving prefill's shape: kernel and plain times."""
     B, nc, Q_, nh, hp, N = SERVE_BATCH, SERVE_PROMPT // 128, 128, 64, 64, 64
@@ -1717,11 +1915,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid_training = training_path(HYBRID_ARCH, "hybrid_training_path", args.seed,
                                     args.train_steps)
+    # the moe, encdec and vlm families after the paths of earlier slices, so
+    # that those run in the process state they always ran in
+    torch.cuda.empty_cache()
+    check_small_families(args.seed)
+    moe_serving = serving_path(MOE_ARCH, args.seed, "moe_serving_path")
+    torch.cuda.empty_cache()
+    encdec_serving = serving_path(ENCDEC_ARCH, args.seed, "encdec_serving_path")
+    torch.cuda.empty_cache()
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
     k2, k3, k2b, k3b = time_k2(gen), time_k3(gen), time_k2_backward(gen), time_k3_backward(gen)
+    k2["shapes"] = [time_k2_cross(gen)]
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
@@ -1735,6 +1942,10 @@ def main() -> int:
     k2["launches_by_path"] = {
         "zamba2_prefill": serving["launches"]["flash_attention"],
         "qwen3_prefill": dense["launches"]["flash_attention"],
+        "granite_prefill": moe_serving["launches"]["flash_attention"],
+        "seamless_prefill": encdec_serving["launches"]["flash_attention"],
+        f"seamless_decode_{SERVE_DECODE}_steps":
+            encdec_serving["decode_launches"]["flash_attention"],
         f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention"],
         f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention"]}
     k2b["launches_per_train_step"] = training["launches_per_step"]["flash_attention_bwd"]

@@ -1,42 +1,34 @@
 """Architecture registry: ``get("<arch-id>")`` -> ModelConfig (port of
 ``repro.configs``).
 
-Each ported architecture is a module exporting ``CONFIG`` (the published
-hyperparameters) and ``smoke()`` (a reduced same-family config for CPU
-tests). Names and aliases are the JAX package's; an architecture the JAX
-package has but the port does not yet raises ``NotImplementedError``.
+Every architecture of the JAX package is a module exporting ``CONFIG`` (the
+published hyperparameters) and ``smoke()`` (a reduced same-family config for
+CPU tests). Names and aliases are the JAX package's.
 """
 
 import importlib
 
 from repro_torch.configs.base import SHAPES, ModelConfig
 
-# every architecture of the JAX package, by module name
-ALL_ARCHS = [
+ARCHS = [
     "qwen3_8b", "qwen3_1p7b", "nemotron_4_340b", "phi4_mini_3p8b",
     "zamba2_1p2b", "qwen3_moe_235b_a22b", "granite_moe_3b_a800m",
     "mamba2_780m", "seamless_m4t_medium", "internvl2_26b",
 ]
-# the ones ported so far
-ARCHS = ["zamba2_1p2b", "mamba2_780m", "qwen3_1p7b", "qwen3_8b",
-         "phi4_mini_3p8b", "nemotron_4_340b"]
+ALL_ARCHS = ARCHS   # every architecture of the JAX package is ported
 
 # canonical ids as assigned (dashes) -> module names
 ALIASES = {a.replace("_", "-").replace("-1p7b", "-1.7b")
             .replace("-3p8b", "-3.8b").replace("-1p2b", "-1.2b"): a
-           for a in ALL_ARCHS}
+           for a in ARCHS}
 
 
 def _module(name: str):
     mod = name.replace("-", "_").replace(".", "p")
-    if mod not in ALL_ARCHS:
-        mod = ALIASES.get(name, mod)
-    if mod not in ALL_ARCHS:
-        raise ValueError(f"unknown architecture {name!r}; known: {sorted(ALIASES)}")
     if mod not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to repro_torch yet; ported: "
-            f"{[k for k, v in ALIASES.items() if v in ARCHS]}")
+        mod = ALIASES.get(name, mod)
+    if mod not in ARCHS:
+        raise ValueError(f"unknown architecture {name!r}; known: {sorted(ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -1,17 +1,21 @@
-// K2 on Hopper: causal or non-causal GQA self-attention with an online
-// softmax (flash attention), forward. Its backward, which recomputes the
-// probabilities from the log-sum-exp this kernel can write, is
-// flash_attention_bwd.cu.
+// K2 on Hopper: causal GQA self-attention, or non-causal GQA self- or
+// cross-attention, with an online softmax (flash attention), forward. Its
+// backward, which recomputes the probabilities from the log-sum-exp this
+// kernel can write, is flash_attention_bwd.cu.
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py,
 // `flash_attention` and its `_kernel`. The plain PyTorch version of the same
 // function is `flash_attention_plain` in
 // src/repro_torch/kernels/flash_attention.py.
 //
-// For q (B,S,H,hd) and k, v (B,S,KV,hd), contiguous, float32 or bfloat16:
+// For q (B,S,H,hd) and k, v (B,Sk,KV,hd), contiguous, float32 or bfloat16:
 // o[b,i,h] = sum_j softmax_j(s_ij) v[b,j,h/(H/KV)] with
 // s_ij = (q[b,i,h] . k[b,j,h/(H/KV)]) * hd^-0.5, and s_ij = -1e30 where key j
-// is masked (j > i when causal, and j >= S). The running max m, the running
+// is masked (j > i when causal, and j >= Sk). The keys have a length of
+// their own, Sk >= 1, for cross-attention: an encoder-decoder's decoder
+// reads Sk encoder frames, with S = 1 at decode. Causal attention needs
+// Sk == S, which the wrapper checks (the reference aligns a causal mask at
+// the top left, a case no model asks for). The running max m, the running
 // sum l and the accumulator are float32; o = acc / max(l, 1e-30), rounded to
 // q's dtype. Where the caller passes an lse buffer (training), each row's
 // log-sum-exp of the scaled logits, lse[b,h,i] = m + log(l) in float32, goes
@@ -22,7 +26,8 @@
 // hd 64, causal, bf16) the work is 4*B*H*S*S*hd/2 = 1.37e11 FLOP against
 // 268 MB of inputs and output: 512 FLOP a byte, above the card's bf16 ridge
 // of 295, so the tensor cores, not the memory, bound it (0.139 ms at 989
-// TFLOP/s).
+// TFLOP/s). Cross-attention does 4*B*H*S*Sk*hd: at the seamless prefill's
+// (8, 2048 q, 512 k, 16, 16, 64) 3.44e10 FLOP against 84 MB, 0.035 ms.
 //
 // The dtype selects one of two kernels; nothing falls back from one to the
 // other.
@@ -60,8 +65,9 @@
 //   * Causal: k tiles wholly above the diagonal are never loaded, a warp
 //     skips a tile that lies wholly above its own rows, and q tiles are
 //     handed out heaviest first. GQA reads the kv head of each query head in place. Any
-//     S: rows and keys past S are zero-filled by cp.async and masked (the
-//     TPU kernel asserts that S divides into its blocks). hd 16, 32, 64, 128.
+//     S and Sk: rows past S and keys past Sk are zero-filled by cp.async and
+//     masked (the TPU kernel asserts that S divides into its blocks). hd 16,
+//     32, 64, 128.
 //   * Registers (CUDA 12.8 nvcc -O3 for sm_90a, as chip_smoke.py prints
 //     them): 246 at hd 64 (two blocks of 4 warps an SM), 178 at hd 128, 186
 //     at hd 32, 151 at hd 16; no spills.
@@ -136,7 +142,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int S, int H, int KV, float scale,
+    float* __restrict__ o, float* __restrict__ lse, int S, int Sk, int H, int KV, float scale,
     bool causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kKPitch = HD + 1;
@@ -156,8 +162,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
   const float* qb = q + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const float* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-  const float* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
+  const float* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  const float* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
 
   load_rows<HD>(qs, HD, qb, q_stride, q0, kBQ, S);
 
@@ -170,7 +176,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
     for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
   }
 
-  int n_kt = (S + kBK - 1) / kBK;
+  int n_kt = (Sk + kBK - 1) / kBK;
   if (causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);  // skip tiles above the diagonal
   const float* qw = qs + warp * kRows * HD;
   float* pw = ps + warp * kRows * kBK;
@@ -180,8 +186,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile is consumed (and q is loaded)
-    load_rows<HD>(ks, kKPitch, kb, kv_stride, k0, kBK, S);
-    load_rows<HD>(vs, HD, vb, kv_stride, k0, kBK, S);
+    load_rows<HD>(ks, kKPitch, kb, kv_stride, k0, kBK, Sk);
+    load_rows<HD>(vs, HD, vb, kv_stride, k0, kBK, Sk);
     __syncthreads();
 
     // scores of the warp's 16 rows against keys k0 + lane and k0 + lane + 32
@@ -218,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int kpos = k0 + lane + 32 * c;
-        const bool keep = kpos < S && (!causal || kpos <= qpos);
+        const bool keep = kpos < Sk && (!causal || kpos <= qpos);
         p[c] = keep ? s[r][c] * scale : kNegInf;
       }
       const float m_new = fmaxf(m[r], warp_max(fmaxf(p[0], p[1])));
@@ -295,7 +301,7 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    float* __restrict__ lse, int S, int H, int KV, float scale_log2, bool causal) {
+    float* __restrict__ lse, int S, int Sk, int H, int KV, float scale_log2, bool causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
   constexpr int MT = tc_mtiles<HD>();  // 16-row m tiles of the warp
@@ -319,15 +325,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
   const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
+  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
 
-  int n_kt = (S + kTcBK - 1) / kTcBK;
+  int n_kt = (Sk + kTcBK - 1) / kTcBK;
   if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / kTcBK + 1);  // skip tiles above the diagonal
 
   tc_load_rows<HD, BQ>(qs, qb, q_stride, q0, S);
-  tc_load_rows<HD, kTcBK>(ks, kb, kv_stride, 0, S);
-  tc_load_rows<HD, kTcBK>(vs, vb, kv_stride, 0, S);
+  tc_load_rows<HD, kTcBK>(ks, kb, kv_stride, 0, Sk);
+  tc_load_rows<HD, kTcBK>(vs, vb, kv_stride, 0, Sk);
   cp_async_commit();
 
   uint32_t qa[MT][kSteps][4];   // the warp's Q fragments, WR rows x HD
@@ -348,8 +354,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
     const int stage = kt & 1;
     if (kt + 1 < n_kt) {  // copy tile kt + 1 while tile kt is multiplied
       const int nxt = (kt + 1) & 1;
-      tc_load_rows<HD, kTcBK>(ks + nxt * kTcBK * P, kb, kv_stride, (kt + 1) * kTcBK, S);
-      tc_load_rows<HD, kTcBK>(vs + nxt * kTcBK * P, vb, kv_stride, (kt + 1) * kTcBK, S);
+      tc_load_rows<HD, kTcBK>(ks + nxt * kTcBK * P, kb, kv_stride, (kt + 1) * kTcBK, Sk);
+      tc_load_rows<HD, kTcBK>(vs + nxt * kTcBK * P, vb, kv_stride, (kt + 1) * kTcBK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -394,7 +400,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
 
     // mask; s[.][j][0..1] are row g, s[.][j][2..3] row g + 8. The scale is
     // applied in the exponent (scale > 0 keeps the max where it is).
-    if (k0 + kTcBK > S || (causal && k0 + kTcBK - 1 > row0)) {
+    if (k0 + kTcBK > Sk || (causal && k0 + kTcBK - 1 > row0)) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -403,7 +409,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
           for (int e = 0; e < 4; ++e) {
             const int kpos = k0 + 8 * j + 2 * t + (e & 1);
             const int qpos = row0 + 16 * mt + g + 8 * (e >> 1);
-            if (kpos >= S || (causal && kpos > qpos)) s[mt][j][e] = kNegInf;
+            if (kpos >= Sk || (causal && kpos > qpos)) s[mt][j][e] = kNegInf;
           }
     }
 
@@ -499,7 +505,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-               int S, int H, int KV, bool causal, cudaStream_t stream) {
+               int S, int Sk, int H, int KV, bool causal, cudaStream_t stream) {
   constexpr size_t bytes = smem_floats<HD>() * sizeof(float);
   auto kernel = flash_attention_f32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -508,7 +514,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, H, KV,
       static_cast<float>(1.0 / sqrt(static_cast<double>(HD))),  // float(hd ** -0.5)
       causal);
   return static_cast<int>(cudaGetLastError());
@@ -516,7 +522,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int S, int H, int KV, bool causal, cudaStream_t stream) {
+                int S, int Sk, int H, int KV, bool causal, cudaStream_t stream) {
   constexpr int bytes = tc_smem_bytes<HD>();
   auto kernel = flash_attention_bf16_kernel<HD>;
   cudaError_t err =
@@ -526,36 +532,38 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
   kernel<<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, H, KV,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Sk, H, KV,
       scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int H, int KV, bool causal, bool is_bf16, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<HD>(q, k, v, o, lse, B, S, H, KV, causal, stream)
-                 : launch_f32<HD>(q, k, v, o, lse, B, S, H, KV, causal, stream);
+           int Sk, int H, int KV, bool causal, bool is_bf16, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<HD>(q, k, v, o, lse, B, S, Sk, H, KV, causal, stream)
+                 : launch_f32<HD>(q, k, v, o, lse, B, S, Sk, H, KV, causal, stream);
 }
 
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(). The wrapper has
-// checked shapes, dtypes, contiguity and alignment; hd is 16, 32, 64 or 128.
+// checked shapes, dtypes, contiguity and alignment; hd is 16, 32, 64 or 128,
+// Sk >= 1, and causal only where Sk == S.
 // bfloat16 inputs run the tensor-core kernel, float32 inputs the CUDA-core
 // kernel. `lse` is a float32 (B,H,S) buffer for each row's log-sum-exp, or
 // null.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, void* lse, int B, int S, int H, int KV,
-                                      int hd, int causal, int is_bf16, void* stream) {
+                                      void* o, void* lse, int B, int S, int Sk, int H,
+                                      int KV, int hd, int causal, int is_bf16,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0, bf = is_bf16 != 0;
   float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, l, B, S, H, KV, c, bf, s);
-    case 32: return launch<32>(q, k, v, o, l, B, S, H, KV, c, bf, s);
-    case 64: return launch<64>(q, k, v, o, l, B, S, H, KV, c, bf, s);
-    case 128: return launch<128>(q, k, v, o, l, B, S, H, KV, c, bf, s);
+    case 16: return launch<16>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
+    case 32: return launch<32>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
+    case 64: return launch<64>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
+    case 128: return launch<128>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

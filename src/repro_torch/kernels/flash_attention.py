@@ -1,11 +1,15 @@
 """K2, causal or non-causal GQA flash attention, on Hopper.
 
-``o = softmax(q kᵀ · hd^-0.5, masked) v`` for self-attention: q ``(B,S,H,hd)``
-and k/v ``(B,S,KV,hd)``, query head ``h`` reading kv head ``h // (H/KV)``.
-Masked logits are ``-1e30``; the output has q's dtype.
+``o = softmax(q kᵀ · hd^-0.5, masked) v``: q ``(B,S,H,hd)`` and k/v
+``(B,Sk,KV,hd)``, query head ``h`` reading kv head ``h // (H/KV)``. Causal
+attention is self-attention (``Sk == S``); non-causal attention takes keys
+of any length ``Sk >= 1`` (an encoder-decoder's cross-attention). Masked
+logits are ``-1e30``; the output has q's dtype.
 
 Its gradient is K2's backward (``csrc/flash_attention_bwd.cu``), which the
-JAX package takes by differentiating ``repro.models.layers.attend``.
+JAX package takes by differentiating ``repro.models.layers.attend``; it takes
+self-attention only, so a CUDA call with ``Sk != S`` that wants a gradient
+raises ``NotImplementedError``.
 
 The functions:
   * :func:`flash_attention_cuda` launches the hand-written CUDA kernel
@@ -93,9 +97,13 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """K2 on the inputs' device: the kernel for CUDA (differentiable through
-    the backward kernel), the plain version for the CPU."""
+    the backward kernel where ``Sk == S``), the plain version for the CPU."""
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            if k.shape[1] != q.shape[1]:
+                raise NotImplementedError(
+                    "flash_attention: K2's backward takes self-attention only; "
+                    f"no gradient for {q.shape[1]} queries against {k.shape[1]} keys")
             return FlashAttention.apply(q, k, v, causal)
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type == "cpu":
@@ -108,7 +116,7 @@ def _launcher():
     fn = _build.library("flash_attention").flash_attention_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    fn.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -123,19 +131,23 @@ def _bwd_launcher():
     return fn
 
 
-def _check(name: str, q, k, v, do=None):
-    """Raise unless q ``(B,S,H,hd)``, k and v ``(B,S,KV,hd)`` and, for the
+def _check(name: str, q, k, v, do=None, *, causal=True):
+    """Raise unless q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for the
     backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
-    of one dtype on one device that the kernels take. Returns
-    (B, S, H, KV, hd)."""
+    of one dtype on one device that the kernels take. ``Sk`` may differ from
+    ``S`` (and be at least 1) only for the non-causal forward. Returns
+    (B, S, Sk, H, KV, hd)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,S,KV,hd); got "
+        raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
-    if (k.shape[0], k.shape[1], k.shape[3]) != (B, S, hd) or KV == 0 or H % KV:
-        raise ValueError(f"{name}: self-attention with H a multiple of KV only; "
-                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    Sk, KV = k.shape[1], k.shape[2]
+    if (k.shape[0], k.shape[3]) != (B, hd) or KV == 0 or H % KV:
+        raise ValueError(f"{name}: q and k must share B and hd, with H a multiple "
+                         f"of KV; got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if Sk != S and (causal or do is not None or Sk == 0):
+        raise ValueError(f"{name}: keys of their own length (here {Sk} for {S} "
+                         f"queries) only for the non-causal forward, and at least 1")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"{name}: do must have q's shape {tuple(q.shape)}; got "
                          f"{tuple(do.shape)}")
@@ -153,7 +165,7 @@ def _check(name: str, q, k, v, do=None):
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError(f"{name}: inputs must be 16-byte aligned")
-    return B, S, H, KV, hd
+    return B, S, Sk, H, KV, hd
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -161,14 +173,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the CUDA kernel on the current stream of the inputs' device.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
-    device: q ``(B,S,H,hd)``, k and v ``(B,S,KV,hd)`` with ``H % KV == 0`` and
-    ``hd`` in ``HEAD_DIMS``; any S. bfloat16 launches the tensor-core
-    kernel, float32 the CUDA-core kernel. Returns the output, and with
+    device: q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` with ``H % KV == 0``
+    and ``hd`` in ``HEAD_DIMS``; any S, and ``Sk == S`` when causal, else any
+    ``Sk >= 1`` (cross-attention). bfloat16 launches the tensor-core kernel,
+    float32 the CUDA-core kernel. Returns the output, and with
     ``return_lse`` also each row's float32 log-sum-exp of the scaled logits,
     ``(B,H,S)``. Raises on anything else and when the launch fails.
     """
     global launches
-    B, S, H, KV, hd = _check("flash_attention_cuda", q, k, v)
+    B, S, Sk, H, KV, hd = _check("flash_attention_cuda", q, k, v, causal=causal)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0:
@@ -176,7 +189,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), None if lse is None else lse.data_ptr(),
-                          B, S, H, KV, hd, int(causal),
+                          B, S, Sk, H, KV, hd, int(causal),
                           int(q.dtype == torch.bfloat16),
                           torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -190,12 +203,13 @@ def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
     """Launch K2's backward kernel on the current stream: ``(dq, dk, dv)`` in
     the inputs' dtype from q, k, v, the output's gradient ``do`` (q's shape
     and dtype) and the forward's float32 log-sum-exp ``(B,H,S)``. Takes what
-    :func:`flash_attention_cuda` takes; raises on anything else and when a
-    launch fails. (The forward's output is not needed: the kernel takes
-    rowsum(do * o) from the recomputed probabilities, which in bf16 is more
-    accurate than from the rounded output; see the source.)"""
+    :func:`flash_attention_cuda` takes for self-attention (``Sk == S``);
+    raises on anything else and when a launch fails. (The forward's output
+    is not needed: the kernel takes rowsum(do * o) from the recomputed
+    probabilities, which in bf16 is more accurate than from the rounded
+    output; see the source.)"""
     global bwd_launches
-    B, S, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do)
+    B, S, _, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do)
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (B, H, S)
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd_cuda: lse must be a contiguous float32 "

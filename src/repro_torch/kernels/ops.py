@@ -19,7 +19,8 @@ def quorum_commit(arrivals, weights):
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
-    """Self-attention, q (B,S,H,hd) and k/v (B,S,KV,hd) -> (B,S,H,hd) (K2)."""
+    """Attention, q (B,S,H,hd) and k/v (B,Sk,KV,hd) -> (B,S,H,hd) (K2);
+    causal needs Sk == S."""
     return _fa.flash_attention(q, k, v, causal=causal)
 
 

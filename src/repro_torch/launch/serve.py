@@ -34,6 +34,29 @@ def make_decode_step(cfg):
     return decode_step
 
 
+def prefix_len(cfg) -> int:
+    """Positions ahead of the prompt's tokens: the image embeddings of the
+    vlm family, which its prefill prepends."""
+    return cfg.n_image_tokens if cfg.family == "vlm" else 0
+
+
+def make_batch(cfg, generator: torch.Generator, B: int, S: int) -> dict:
+    """A random request batch on the generator's device: ``tokens`` (B, S)
+    and the stub frontends' inputs, ``frames`` (B, S // enc_len_ratio, d)
+    for encdec and ``image_embeds`` (B, n_image_tokens, d) for vlm, in the
+    compute dtype."""
+    device = generator.device
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=generator,
+                                     device=device)}
+    stub = {"encdec": ("frames", S // cfg.enc_len_ratio),
+            "vlm": ("image_embeds", cfg.n_image_tokens)}.get(cfg.family)
+    if stub is not None:
+        name, length = stub
+        batch[name] = torch.randn((B, length, cfg.d_model), generator=generator,
+                                  device=device).to(cfg.dtype())
+    return batch
+
+
 # ---------------------------------------------------------------------------
 # CLI demo: greedy decode a few tokens with the smoke config (always)
 # ---------------------------------------------------------------------------
@@ -55,11 +78,9 @@ def main(argv=None):
     gen = torch.Generator(device).manual_seed(args.seed)
     params = fam.init_params(cfg, gen, device=device)
     B, S = args.batch, args.prompt_len
-    total = S + args.gen
-
-    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=gen,
-                                     device=device)}
-    prefill = make_prefill_step(cfg, cache_len=total)
+    batch = make_batch(cfg, gen, B, S)
+    pos0 = S + prefix_len(cfg)          # decode starts after any image prefix
+    prefill = make_prefill_step(cfg, cache_len=pos0 + args.gen)
     decode = make_decode_step(cfg)
 
     t0 = time.time()
@@ -68,7 +89,7 @@ def main(argv=None):
         tok = torch.argmax(logits[:, -1], -1)[:, None]
         out = [tok]
         for i in range(args.gen - 1):
-            pos = torch.full((B,), S + i, dtype=torch.int64, device=device)
+            pos = torch.full((B,), pos0 + i, dtype=torch.int64, device=device)
             logits, cache = decode(params, cache, tok, pos)
             tok = torch.argmax(logits[:, -1], -1)[:, None]
             out.append(tok)

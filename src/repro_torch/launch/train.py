@@ -14,8 +14,9 @@ one device: the sharding rules wait for ``launch/shardings``).
 It updates the parameters and moments in place (the JAX package donates
 them) and returns the same trees.
 
-CLI (on CUDA unless ``--device cpu``; ``--arch`` any ported configuration,
-e.g. qwen3-1.7b, zamba2-1.2b or mamba2-780m):
+CLI (on CUDA unless ``--device cpu``; ``--arch`` a configuration of the
+dense, ssm or hybrid family, e.g. qwen3-1.7b, zamba2-1.2b or mamba2-780m;
+the moe, encdec and vlm families serve but do not train yet):
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --arch zamba2-1.2b
 """
 
@@ -52,10 +53,18 @@ def _fill(tree, it):
     return next(it)
 
 
+# families whose loss_fn (and, for encdec, K2's backward with keys of their
+# own length) the port does not have yet
+UNTRAINED = ("moe", "encdec", "vlm")
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
                     quorum=None):
-    """The train step of ``cfg`` (``models.family`` raises for a family the
-    port does not have)."""
+    """The train step of ``cfg``; raises ``NotImplementedError`` for a family
+    that serves but does not train yet (``UNTRAINED``)."""
+    if cfg.family in UNTRAINED:
+        raise NotImplementedError(f"training the {cfg.family} family ({cfg.name}) is "
+                                  f"not ported to repro_torch yet; it serves only")
     fam = family(cfg)
 
     def loss_for(p, mb):
@@ -125,6 +134,7 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, microbatches=1)
     fam = family(cfg)
     opt_cfg = AdamWConfig(lr=args.lr, moment_dtype=cfg.opt_state_dtype)
+    train_step = make_train_step(cfg, opt_cfg, total_steps=args.steps)
     device = default_device(args.device)
 
     params = fam.init_params(cfg, torch.Generator(device).manual_seed(args.seed),
@@ -137,7 +147,6 @@ def main(argv=None):
             args.resume, params, opt_state)
         print(f"resumed from step {step0}")
 
-    train_step = make_train_step(cfg, opt_cfg, total_steps=args.steps)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed)
     writer = None

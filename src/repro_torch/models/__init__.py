@@ -6,28 +6,24 @@ functional interface for serving:
   prefill(cfg, params, batch, cache_len)
   decode_step(cfg, params, cache, token, pos)
 
-and, for training, ``loss_fn(cfg, params, batch)``.
-
-Only the ported families are listed; the others raise NotImplementedError.
+and, for training, ``loss_fn(cfg, params, batch)``. Every family of the JAX
+package is here; the moe, encdec and vlm families serve but have no
+``loss_fn`` yet (``launch.train.make_train_step`` raises for them).
 """
 
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import encdec, hybrid, mamba2, moe, transformer, vlm
 
 FAMILIES = {
     "dense": transformer,
+    "moe": moe,
     "ssm": mamba2,
     "hybrid": hybrid,
+    "encdec": encdec,
+    "vlm": vlm,
 }
-
-# families of the JAX package that the port does not have yet
-NOT_PORTED = ("moe", "encdec", "vlm")
 
 
 def family(cfg):
     if cfg.family in FAMILIES:
         return FAMILIES[cfg.family]
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is "
-                                  f"not ported to repro_torch yet; ported: "
-                                  f"{sorted(FAMILIES)}")
     raise ValueError(f"unknown model family {cfg.family!r}")

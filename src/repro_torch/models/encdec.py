@@ -1,0 +1,174 @@
+"""Encoder-decoder backbone (seamless-m4t-medium) (port of
+``repro.models.encdec``).
+
+The audio frontend is a stub, as in the JAX package: the batch carries
+precomputed frame embeddings ``frames`` (B, S_enc, d). A bidirectional
+encoder runs over the frames and a causal decoder with cross-attention over
+the encoder's output.
+
+Serving: prefill runs the encoder once and caches (a) the decoder's
+self-attention K/V and (b) the cross-attention K/V projected from the
+encoder output (``mk``/``mv``); a decode step writes only the self cache, in
+place, and reads ``mk``/``mv`` as they are. Every attention goes through
+``layers.attend``, so through K2 on a card: the encoder's non-causal
+self-attention, the decoder's causal self-attention, and cross-attention, q
+of the decoder's length against keys of the encoder's (q of length 1 at
+decode). ``loss_fn`` waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import default_device
+from repro_torch.models import layers as L
+from repro_torch.models.mamba2 import check_generator
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def init_enc_layer(generator, cfg, dt):
+    return {"attn": L.init_attention(generator, cfg, dt),
+            "mlp": L.init_mlp(generator, cfg, dt),
+            "ln1": L.ones(generator, (cfg.d_model,), dt),
+            "ln2": L.ones(generator, (cfg.d_model,), dt)}
+
+
+def init_dec_layer(generator, cfg, dt):
+    return {"self": L.init_attention(generator, cfg, dt),
+            "cross": L.init_attention(generator, cfg, dt),
+            "mlp": L.init_mlp(generator, cfg, dt),
+            "ln1": L.ones(generator, (cfg.d_model,), dt),
+            "ln2": L.ones(generator, (cfg.d_model,), dt),
+            "ln3": L.ones(generator, (cfg.d_model,), dt)}
+
+
+def init_params(cfg, generator: torch.Generator, *, device=None):
+    """Parameters on ``device`` (default CUDA), drawn from ``generator``."""
+    g = check_generator(generator, device)
+    dt = cfg.pdtype()
+    return {
+        "embed": L.init_embed(g, cfg, dt),
+        "enc": L.stack_layers(cfg.encoder_layers, lambda: init_enc_layer(g, cfg, dt)),
+        "dec": L.stack_layers(cfg.n_layers, lambda: init_dec_layer(g, cfg, dt)),
+        "ln_enc": L.ones(g, (cfg.d_model,), dt),
+        "ln_f": L.ones(g, (cfg.d_model,), dt),
+    }
+
+
+# ---------------------------------------------------------------------------
+# cross attention (no rope, k/v from the encoder's output)
+# ---------------------------------------------------------------------------
+
+def cross_attend(params, cfg, x, mem_k, mem_v):
+    """x: (B,Sq,d); mem_k/mem_v: (B,Se,KV,hd) precomputed."""
+    B, Sq, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(B, Sq, H, hd)
+    o = L.attend(q, mem_k, mem_v, causal=False)
+    return o.reshape(B, Sq, H * hd) @ params["wo"]
+
+
+def cross_kv(params, cfg, mem):
+    B, Se, _ = mem.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (mem @ params["wk"]).reshape(B, Se, KV, hd)
+    v = (mem @ params["wv"]).reshape(B, Se, KV, hd)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# encoder / decoder trunks
+# ---------------------------------------------------------------------------
+
+def encode(cfg, params, frames):
+    x = frames.to(cfg.dtype())
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for layer in L.unstack_layers(params["enc"], cfg.encoder_layers):
+        h = L.rmsnorm(x, layer["ln1"])
+        q, k, v = L._qkv(layer["attn"], cfg, h, positions)
+        o = L.attend(q, k, v, causal=False)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
+        h = L.rmsnorm(x, layer["ln2"])
+        x = x + L.mlp(layer["mlp"], cfg, h)
+    return L.rmsnorm(x, params["ln_enc"])
+
+
+def dec_block(cfg, layer, x, enc_out, positions):
+    h = L.rmsnorm(x, layer["ln1"])
+    x = x + L.attention_train(layer["self"], cfg, h, positions)
+    h = L.rmsnorm(x, layer["ln2"])
+    mk, mv = cross_kv(layer["cross"], cfg, enc_out)
+    x = x + cross_attend(layer["cross"], cfg, h, mk, mv)
+    h = L.rmsnorm(x, layer["ln3"])
+    return x + L.mlp(layer["mlp"], cfg, h)
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, B, S, dtype=None, *, device=None):
+    dt = dtype or cfg.dtype()
+    Se = S // cfg.enc_len_ratio
+    device = default_device(device)
+    self_shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    cross_shape = (cfg.n_layers, B, Se, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(self_shape, dtype=dt, device=device),
+            "v": torch.zeros(self_shape, dtype=dt, device=device),
+            "mk": torch.zeros(cross_shape, dtype=dt, device=device),
+            "mv": torch.zeros(cross_shape, dtype=dt, device=device)}
+
+
+def prefill(cfg, params, batch, cache_len=None):
+    """Logits of the last position and the cache: the decoder's self K/V,
+    ``cache_len`` (default the prompt length) positions long and zero past
+    the prompt, and the cross K/V of every layer."""
+    enc_out = encode(cfg, params, batch["frames"])
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    B, S, _ = x.shape
+    Se = enc_out.shape[1]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    kv = (cfg.n_kv_heads, cfg.head_dim)
+    ks = x.new_zeros((cfg.n_layers, B, cache_len or S, *kv))
+    vs = torch.zeros_like(ks)
+    mks = x.new_empty((cfg.n_layers, B, Se, *kv))
+    mvs = torch.empty_like(mks)
+    for i, layer in enumerate(L.unstack_layers(params["dec"], cfg.n_layers)):
+        h = L.rmsnorm(x, layer["ln1"])
+        q, k, v = L._qkv(layer["self"], cfg, h, positions)
+        o = L.attend(q, k, v, causal=True)
+        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["self"]["wo"]
+        h = L.rmsnorm(x, layer["ln2"])
+        mks[i], mvs[i] = cross_kv(layer["cross"], cfg, enc_out)
+        x = x + cross_attend(layer["cross"], cfg, h, mks[i], mvs[i])
+        h = L.rmsnorm(x, layer["ln3"])
+        x = x + L.mlp(layer["mlp"], cfg, h)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x[:, -1:])
+    return logits, {"k": ks, "v": vs, "mk": mks, "mv": mvs}
+
+
+def decode_step(cfg, params, cache, token, pos):
+    """One token for the whole batch at position ``pos`` (B,). Updates the
+    self-attention cache IN PLACE and returns ``cache``; ``mk``/``mv`` are
+    read only."""
+    x = L.embed(params["embed"], token).to(cfg.dtype())    # (B,1,d)
+    for i in range(cfg.n_layers):
+        layer = L.layer_at(params["dec"], i)
+        h = L.rmsnorm(x, layer["ln1"])
+        a, _, _ = L.attention_decode(layer["self"], cfg, h, cache["k"][i],
+                                     cache["v"][i], pos)
+        x = x + a
+        h = L.rmsnorm(x, layer["ln2"])
+        x = x + cross_attend(layer["cross"], cfg, h, cache["mk"][i], cache["mv"][i])
+        h = L.rmsnorm(x, layer["ln3"])
+        x = x + L.mlp(layer["mlp"], cfg, h)
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x)
+    return logits, cache

@@ -9,9 +9,10 @@ Conventions, as in the JAX package:
     device. ``jax.random`` draws another stream, so tests carry the JAX
     package's parameters across (``repro_torch.convert``) instead.
 
-``attend`` runs kernel K2 on CUDA tensors (``kernels.ops.flash_attention``,
-differentiable through K2's backward kernel) and its plain version on CPU
-tensors. Sharding (``shard``, ``specs_*``) waits for ``launch/shardings``.
+``attend`` (self-attention, and an encoder-decoder's cross-attention with
+keys of their own length) runs kernel K2 on CUDA tensors
+(``kernels.ops.flash_attention``, differentiable through K2's backward kernel
+for self-attention) and its plain version on CPU tensors. Sharding (``shard``, ``specs_*``) waits for ``launch/shardings``.
 """
 
 from __future__ import annotations
@@ -187,7 +188,8 @@ def _group(q, KV):
 
 
 def attend(q, k, v, *, causal: bool = True):
-    """Self-attention: K2 on CUDA tensors, its plain version on the CPU."""
+    """Self- or cross-attention, q (B,S,H,hd) against k/v (B,Sk,KV,hd) (causal
+    needs Sk == S): K2 on CUDA tensors, its plain version on the CPU."""
     return ops.flash_attention(q, k, v, causal=causal)
 
 

@@ -92,9 +92,15 @@ def init_cache(cfg, B, S, dtype=None, *, device=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-def prefill(cfg, params, batch, cache_len=None):
+def dense_ffn(cfg, layer, h):
+    return L.mlp(layer["mlp"], cfg, h)
+
+
+def prefill(cfg, params, batch, cache_len=None, *, ffn=dense_ffn):
     """Logits of the last position and the KV cache, ``cache_len`` (default
-    the prompt length) positions long, zero past the prompt."""
+    the prompt length, the image prefix included) positions long, zero past
+    the prompt. ``ffn(cfg, layer, h)`` is each layer's feed-forward block
+    (the MoE family passes its own)."""
     x = embed_tokens(cfg, params, batch)
     B, S, _ = x.shape
     positions = positions_for(x)
@@ -106,7 +112,7 @@ def prefill(cfg, params, batch, cache_len=None):
         o = L.attend(q, k, v, causal=True)
         x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
         h = L.rmsnorm(x, layer["ln2"])
-        x = x + L.mlp(layer["mlp"], cfg, h)
+        x = x + ffn(cfg, layer, h)
         ks[i, :, :S] = k
         vs[i, :, :S] = v
     x = L.rmsnorm(x, params["ln_f"])
@@ -114,9 +120,9 @@ def prefill(cfg, params, batch, cache_len=None):
     return logits, {"k": ks, "v": vs}
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos, *, ffn=dense_ffn):
     """One token for the whole batch at position ``pos`` (B,). Updates
-    ``cache`` IN PLACE and returns it."""
+    ``cache`` IN PLACE and returns it. ``ffn`` as for :func:`prefill`."""
     x = L.embed(params["embed"], token).to(cfg.dtype())    # (B,1,d)
     for i in range(cfg.n_layers):
         layer = L.layer_at(params["layers"], i)
@@ -125,7 +131,7 @@ def decode_step(cfg, params, cache, token, pos):
                                      cache["v"][i], pos)
         x = x + a
         h = L.rmsnorm(x, layer["ln2"])
-        x = x + L.mlp(layer["mlp"], cfg, h)
+        x = x + ffn(cfg, layer, h)
     x = L.rmsnorm(x, params["ln_f"])
     logits = L.unembed(params["embed"], x)
     return logits, cache

@@ -385,9 +385,13 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 # ---------------------------------------------------------------------------
 # K3's backward kernel against the closed-form plain backward, and the
 # gradient through SSDIntraChunk. float32 at atol/rtol 1e-4, the forward's
-# contract; a bf16 dx row by row against the plain backward run in float32
-# on the same bf16 x: its largest row error at most twice the bf16 plain
-# version's, or one bf16 ulp (2^-8), the rounding of dx itself.
+# contract, against the closed form evaluated in float64, as
+# chip_smoke.hold_k3_backward holds it: ddt and dseg are small differences
+# of large sums, and the plain version's own float32 products leave it up
+# to 1.6 limits from the float64 value at N 128; a bf16 dx row by row
+# against the plain backward run in float32 on the same bf16 x: its largest
+# row error at most twice the bf16 plain version's, or one bf16 ulp (2^-8),
+# the rounding of dx itself.
 # ---------------------------------------------------------------------------
 
 K3_INPUTS = ("x", "dt", "seg", "Bm", "Cm")
@@ -412,10 +416,11 @@ def test_ssd_backward_kernel_matches_plain(no_tf32, B, nc, Q, nh, hp, N, xdtype)
     torch.cuda.synchronize()
     assert ssd.bwd_launches == before + 1
     want = ssd.ssd_intra_chunk_bwd_plain(*args, *grads)
-    for name, g, w in zip(K3_INPUTS, got, want):
+    exact = ssd.ssd_intra_chunk_bwd_plain(*(t.double() for t in (*args, *grads)))
+    for name, g, w, e in zip(K3_INPUTS, got, want, exact):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.isfinite(g).all(), name
         if g.dtype == torch.float32:
-            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+            torch.testing.assert_close(g.double(), e, atol=1e-4, rtol=1e-4, msg=name)
     if xdtype == torch.bfloat16:
         ref = ssd.ssd_intra_chunk_bwd_plain(args[0].float(), *args[1:], *grads)[0]
         assert row_err(got[0], ref) <= max(2 * row_err(want[0], ref), BF16_ULP)
@@ -505,3 +510,118 @@ def test_k1_wrapper_raises_where_a_gradient_is_wanted(cuda, name):
     assert qc.launches == before + 1
     want = qc.quorum_commit_plain(a.cpu(), w.cpu(), thr.cpu(), members=True)
     assert_equal_results(tuple(x.cpu() for x in got), want)
+
+
+# ---------------------------------------------------------------------------
+# K2 with keys of their own length (cross-attention, non-causal), held as
+# test_flash_attention_kernel_matches_plain holds self-attention; the
+# encoder's non-causal self-attention; and the raise where a gradient is
+# wanted, which K2's backward (self-attention only) cannot give.
+# ---------------------------------------------------------------------------
+
+
+def cross_inputs(seed, B, S, Sk, H, KV, hd, dtype, device):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device).to(dtype)
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd", [
+    (8, 2048, 512, 16, 16, 64), (2, 77, 300, 6, 2, 64), (8, 1, 512, 16, 16, 64),
+    (2, 40, 1, 4, 2, 32), (2, 512, 512, 16, 16, 64), (1, 130, 70, 8, 2, 128),
+    (2, 33, 65, 4, 4, 16)])
+def test_flash_attention_kernel_takes_keys_of_their_own_length(no_tf32, dtype, tol, B, S,
+                                                               Sk, H, KV, hd):
+    q, k, v = cross_inputs(S + Sk, B, S, Sk, H, KV, hd, dtype, no_tf32)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=False)
+        assert row_err(got, ref) <= 2 * row_err(want, ref)
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=False))
+
+
+def test_cross_attention_raises_where_a_gradient_is_wanted(no_tf32):
+    q, k, v = cross_inputs(0, 1, 16, 24, 2, 2, 32, torch.float32, no_tf32)
+    with pytest.raises(ValueError, match="own length"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    before = (fa.launches, fa.bwd_launches)
+    for leaf in range(3):
+        args = [t.clone().requires_grad_(i == leaf) for i, t in enumerate((q, k, v))]
+        with pytest.raises(NotImplementedError, match="self-attention only"):
+            ops.flash_attention(*args, causal=False)
+    assert (fa.launches, fa.bwd_launches) == before
+    with torch.no_grad():
+        ops.flash_attention(*(t.requires_grad_() for t in (q, k, v)), causal=False)
+    assert fa.launches == before[0] + 1
+
+
+# ---------------------------------------------------------------------------
+# The smoke moe, encdec and vlm families in float32, served on the card
+# against the same on the CPU: prefill plus 3 greedy decode steps, logits
+# and every cache tensor at atol/rtol 1e-4, equal greedy tokens; for the MoE
+# configs the router's choice sets equal wherever the k-th and (k+1)-th
+# probabilities lie more than NEAR_TIE apart (near-ties are counted, not
+# avoided).
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import family, moe  # noqa: E402
+
+NEAR_TIE = 1e-5
+
+
+def serve_smoke(cfg, params, batch, device, steps=3):
+    on = L.tree_map(lambda t: t.to(device), params)
+    batch = {k: t.to(device) for k, t in batch.items()}
+    pos0 = batch["tokens"].shape[1] + serve.prefix_len(cfg)
+    logits, cache = serve.make_prefill_step(cfg, cache_len=pos0 + steps + 1)(on, batch)
+    out, fed = [logits], []
+    for i in range(steps):
+        tok = logits[:, -1].argmax(-1)[:, None]
+        fed.append(tok)
+        pos = torch.full((tok.shape[0],), pos0 + i, dtype=torch.int64, device=device)
+        logits, cache = serve.make_decode_step(cfg)(on, cache, tok, pos)
+        out.append(logits)
+    return out, fed, cache
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+                                  "seamless-m4t-medium", "internvl2-26b"])
+def test_smoke_families_serve_on_the_card_as_on_the_cpu(no_tf32, monkeypatch, arch):
+    cfg = dataclasses.replace(configs.smoke(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    params = family(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = serve.make_batch(cfg, torch.Generator().manual_seed(1), 2, 64)
+    routes = {"cpu": [], "cuda": []}
+    route = moe.route
+
+    def recording(p, c, xf):
+        top_p, top_e, probs = route(p, c, xf)
+        routes[xf.device.type].append((top_e.cpu(), probs.cpu()))
+        return top_p, top_e, probs
+    monkeypatch.setattr(moe, "route", recording)
+    before = fa.launches
+    runs = {d: serve_smoke(cfg, params, batch, d) for d in ("cpu", "cuda")}
+    torch.cuda.synchronize()
+    assert fa.launches > before
+    for step, (g, w) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4, msg=f"step {step}")
+    for g, w in zip(runs["cuda"][1], runs["cpu"][1]):
+        assert torch.equal(g.cpu(), w)
+    for name, w in runs["cpu"][2].items():
+        torch.testing.assert_close(runs["cuda"][2][name].cpu(), w, atol=1e-4, rtol=1e-4)
+    assert len(routes["cuda"]) == len(routes["cpu"])
+    for (ge, _), (we, probs) in zip(routes["cuda"], routes["cpu"]):
+        ranked = probs.sort(-1, descending=True).values
+        clear = (ranked[:, cfg.top_k - 1] - ranked[:, cfg.top_k]) >= NEAR_TIE
+        assert torch.equal(ge.sort(-1).values[clear], we.sort(-1).values[clear])

@@ -6,7 +6,9 @@ The Pallas kernel runs in interpret mode on the cases of
 file: 2e-5 in float32 (the same arithmetic summed in another order) and
 2e-2 in bfloat16 (the reference rounds the logits to bf16 before the
 softmax, the kernel does not). A ragged S, which the Pallas kernel refuses,
-is held against ``attend_full`` alone. The plain version's autograd gradient,
+is held against ``attend_full`` alone, and so are keys of their own length
+(cross-attention) beside the reference's ``attend`` and ``attend_chunked``.
+The plain version's autograd gradient,
 which the backward kernel is held to on a card, is held here against
 ``jax.grad`` of the JAX reference. The CUDA kernels are tested on a GPU by
 ``tests/test_torch_cuda.py``.
@@ -78,6 +80,47 @@ def test_plain_ragged_length(causal):
     (jq, q), (jk, k), (jv, v) = inputs(2, 2, 200, 4, 2, 32, "float32")
     check(fa.flash_attention(q, k, v, causal=causal),
           JL.attend_full(jq, jk, jv, causal=causal), "float32")
+
+
+def cross_inputs(seed, B, S, Sk, H, KV, hd):
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)):
+        j = jnp.asarray(rng.normal(size=shape), jnp.float32)
+        out.append((j, convert.to_tensor(np.asarray(j), torch.float32, device="cpu")))
+    return out
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd", [
+    (2, 1, 512, 4, 4, 64),        # decode: one query against the encoder's keys
+    (1, 1024, 512, 4, 2, 32),     # S > ATTN_CHUNK: chunked over the queries
+    (2, 77, 300, 6, 2, 16),       # ragged lengths, GQA
+    (1, 40, 1, 2, 1, 32),         # one key
+])
+def test_plain_cross_attention_matches_jax(B, S, Sk, H, KV, hd):
+    """Keys of their own length (cross-attention, non-causal): the plain
+    version, through the entry point, against the reference's attend_full,
+    and attend_chunked where the reference's attend takes it."""
+    (jq, q), (jk, k), (jv, v) = cross_inputs(S + Sk, B, S, Sk, H, KV, hd)
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert got.shape == q.shape and got.dtype == q.dtype
+    check(got, JL.attend_full(jq, jk, jv, causal=False), "float32")
+    check(got, JL.attend(jq, jk, jv, causal=False), "float32")
+    if S > fa.ATTN_CHUNK:
+        check(got, JL.attend_chunked(jq, jk, jv, causal=False), "float32")
+
+
+def test_wrapper_takes_keys_of_their_own_length_only_without_a_mask():
+    q, k = torch.zeros(1, 8, 2, 64), torch.zeros(1, 24, 2, 64)
+    with pytest.raises(ValueError, match="own length"):
+        fa.flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="own length"):
+        fa.flash_attention_cuda(q, k[:, :0], k[:, :0], causal=False)
+    with pytest.raises(ValueError, match="own length"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 8), causal=False)
+    # non-causal with 24 keys passes the shape checks and stops at the device
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q, k, k, causal=False)
 
 
 def test_cpu_tensors_run_the_plain_version_without_a_launch():

@@ -42,7 +42,7 @@ from repro.launch import serve as jax_serve  # noqa: E402
 from repro.models import family as jax_family  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import family, hybrid  # noqa: E402
+from repro_torch.models import family, hybrid, moe  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 
 B, S, STEPS = 2, 64, 3
@@ -188,10 +188,9 @@ def test_configs_match_jax_and_unported_archs_raise():
     cfg = configs.get("zamba2_1p2b")
     assert (cfg.head_dim, cfg.d_inner, cfg.n_ssm_heads) == (64, 4096, 64)
     assert cfg.dtype() == torch.bfloat16 and hybrid.n_shared(cfg) == 6
-    with pytest.raises(NotImplementedError, match="not ported"):
-        configs.get("granite-moe-3b-a800m")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        family(jax_configs.get("granite-moe-3b-a800m"))
+    # the moe family is ported: its config and module, not a raise
+    assert configs.get("granite-moe-3b-a800m") == configs.granite_moe_3b_a800m.CONFIG
+    assert family(jax_configs.get("granite-moe-3b-a800m")) is moe
     with pytest.raises(ValueError, match="unknown architecture"):
         configs.smoke("no-such-model")
 

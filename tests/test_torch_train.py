@@ -184,3 +184,16 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
     for a, b in zip(tree_leaves(resumed), tree_leaves(params)):
         assert torch.equal(a, b)
 
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "seamless-m4t-medium",
+                                  "internvl2-26b"])
+def test_families_that_only_serve_raise_for_a_train_step(arch):
+    """moe, encdec and vlm have no loss_fn in the port yet (and encdec's
+    cross-attention no backward kernel): the train step and the CLI raise
+    NotImplementedError before anything is built."""
+    cfg = configs.smoke(arch)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train.make_train_step(cfg, AdamWConfig())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train.main(["--smoke", "--arch", arch, "--device", "cpu", "--steps", "1"])
