@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
 drives the weighted-quorum data plane, zamba2-1.2b, qwen3-1.7b,
-granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b and
-zamba2-1.2b training at full size, and times them.
+granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b,
+zamba2-1.2b, granite-moe-3b-a800m and seamless-m4t-medium training at full
+size, and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
@@ -36,8 +37,8 @@ Phases, each of which raises on failure so that the script exits non-zero:
      and K2 with keys of their own length (cross-attention at the seamless
      prefill's shape, a ragged GQA pair, one query, one key; twice, bit for
      bit) and the seamless encoder's non-causal self-attention; K2 raising,
-     with no launch, for causal attention with Sk != S and where a gradient
-     is wanted with Sk != S;
+     with no launch, for causal attention with Sk != S, also where a
+     gradient is wanted;
      K3's backward kernel against its closed-form plain version evaluated
      in float64 on the same cases, and a gradient of ``ssd_chunked`` with any of x, dt, A, Bm, Cm
      requiring one launching K3 once and its backward exactly once, equal
@@ -51,8 +52,12 @@ Phases, each of which raises on failure so that the script exits non-zero:
      memory, and a profiled prefill;
   6. K2's backward against the plain version's autograd gradient on the
      card (the training shape, every head dim, GQA and ratio 1, ragged and
-     non-causal, hd 128 ragged causal and non-causal, float32 and bf16),
-     K2's log-sum-exp output, and
+     non-causal, hd 128 ragged causal and non-causal, float32 and bf16; keys
+     of their own length, non-causal: the seamless training cross-attention
+     (8, 2048 queries, 512 keys, 16, 16, 64), S 77 against Sk 300 with GQA,
+     1024 queries against 512 keys, one key, one query, and the seamless
+     encoder's self-attention, each twice bit for bit; causal Sk != S
+     raising before any launch), K2's log-sum-exp output, and
      ``layers.attend`` on the card differentiable through it;
   7. the smoke qwen3-1.7b (float32) on the card against the CPU: prefill and
      3 decode steps, 2 train steps (2 microbatches, remat), and a checkpoint
@@ -75,12 +80,24 @@ Phases, each of which raises on failure so that the script exits non-zero:
      (K2 32 times in the prefill, not in decode) and seamless-m4t-medium with
      512 frames a request (K2 36 times in the prefill: 12 encoder, 12
      decoder, 12 cross; 12 times a decode step, the cross-attention of one
-     query against the 512 cached frames);
+     query against the 512 cached frames); then the same four smoke configs
+     (float32, 2 microbatches, remat), 2 train steps each on the card
+     against the CPU as in 7, with the stub frontend's inputs, K2's backward
+     launched once an attention layer a microbatch, and the MoE router's
+     smallest gap between a token's k-th and (k+1)-th probability held at
+     NEAR_TIE or more on the CPU; and the training paths of
+     granite-moe-3b-a800m (2 microbatches; a step launches K2 128 times and
+     its backward 64) and seamless-m4t-medium (512 frames a sequence, cut
+     from one microbatch to two, ENCDEC_TRAIN_CUT; K2 144 times, its
+     backward 72: 12 encoder, 12 causal, 12 cross a microbatch), as the
+     other training paths, with the model FLOP counted over
+     the active experts and, for the encoder, over the frames;
  10. kernel times beside the plain version's, the bound and the library's,
      as one JSON line {"kernels": [...]}: the kernel's device time
      (torch.profiler), the time per call through the wrapper and of the plain
      version (CUDA events over back-to-back calls, so host overhead
-     included); K2 also at the seamless prefill's cross-attention shape;
+     included); K2 and its backward also at the seamless cross-attention
+     shape;
  11. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -116,7 +133,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quorum_commit as qc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.data import DataConfig, host_batch  # noqa: E402
+from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -161,6 +178,14 @@ MOE_ARCH = "granite-moe-3b-a800m"
 ENCDEC_ARCH = "seamless-m4t-medium"
 NEAR_TIE = 1e-5           # router probabilities closer than this may pick otherwise
 K2_CROSS_SHAPE = (8, 2048, 16, 16, 64, 512)   # seamless prefill: B, S, H, KV, hd, Sk
+# added to --seed for the four smoke families' train steps, chosen once. At
+# 0 the smoke qwen3-moe's router came within 6.6e-7 of a tie in the CPU half
+# of the phase (an x86 host, torch 2.13's CPU build). At 4 the H100 host's
+# CPU half reads a smallest gap of 2.42e-5 (qwen3-moe) and 3.56e-5
+# (granite-moe), only 2.4 and 3.6 NEAR_TIE, and the x86 host 9.2e-5 and
+# 1.5e-4: the second step's routing moves with the host's float32 rounding,
+# so another --seed or host can stop the phase at this check.
+SMALL_FAMILY_TRAIN_SEED = 4
 
 # Dense paths: qwen3-1.7b as configured (28 layers, d 2048, bf16). Serving
 # takes the zamba2 traffic; training takes 5 steps of 8 x 2048 tokens.
@@ -177,6 +202,12 @@ K2_TRAIN_SHAPE = (4, 2048, 16, 8, 128)   # one microbatch of qwen3-1.7b
 HYBRID_ARCH = "zamba2-1.2b"
 K3_TRAIN_SHAPE = (4, 16, 128, 64, 64, 64)   # B, nc, Q, nh, hp, N; x bf16
 HYBRID_TRAIN_PEAK_GIB = 40.0
+# The moe and encdec training paths: granite-moe-3b-a800m as configured;
+# seamless-m4t-medium cut to 2 microbatches (the step's 8 x 2048 tokens
+# unchanged): at its one microbatch the float32 logits (16,384 x 256,206,
+# 16.8 GB) and their log-sum-exp's backward asked 15.6 GiB more of an H100's
+# 79.2 GiB with 69.0 GiB in use
+ENCDEC_TRAIN_CUT = {"microbatches": 2}
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -789,24 +820,21 @@ def check_k2(gen) -> dict:
         if not causal:
             if not torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal)):
                 raise AssertionError(f"K2 at {shape} differs between two runs")
-    # causal needs Sk == S; no gradient for Sk != S (K2's backward is
-    # self-attention only), and nothing launched for either
+    # causal needs Sk == S: it raises, also where a gradient is wanted, and
+    # nothing is launched
     q, k, v = attention_inputs(gen, 1, 16, 2, 2, 32, torch.float32, Sk=24)
     before = (fa.launches, fa.bwd_launches)
-    try:
-        fa.flash_attention_cuda(q, k, v, causal=True)
-        raise AssertionError("K2 took causal attention with Sk != S")
-    except ValueError:
-        pass
-    try:
-        ops.flash_attention(q, k.requires_grad_(), v, causal=False)
-        raise AssertionError("K2 gave cross-attention where a gradient is wanted")
-    except NotImplementedError:
-        pass
+    for call in (lambda: fa.flash_attention_cuda(q, k, v, causal=True),
+                 lambda: ops.flash_attention(q, k.clone().requires_grad_(), v, causal=True)):
+        try:
+            call()
+            raise AssertionError("K2 took causal attention with Sk != S")
+        except ValueError:
+            pass
     if (fa.launches, fa.bwd_launches) != before:
         raise AssertionError("K2 launched where it raised")
     print(f"K2 vs plain on the card, max abs error: {json.dumps(errors)}; keys of their "
-          f"own length twice bit for bit; causal Sk != S and a wanted gradient raise")
+          f"own length twice bit for bit; causal Sk != S raises")
     return errors
 
 
@@ -1013,13 +1041,25 @@ class RouteLog:
 
         def recording(params, cfg, xf):
             top_p, top_e, probs = self._route(params, cfg, xf)
-            self.calls[xf.device.type].append((top_e.cpu(), probs.cpu()))
+            self.calls[xf.device.type].append((top_e.cpu(), probs.detach().cpu()))
             return top_p, top_e, probs
         moe.route = recording
         return self
 
     def __exit__(self, *exc):
         moe.route = self._route
+
+    def smallest_cpu_gap(self, top_k) -> float:
+        """The smallest gap between a token's k-th and (k+1)-th probability
+        over every call recorded on the CPU; raises unless it is at least
+        NEAR_TIE, so that the card routes every token as the CPU does."""
+        gaps = [float((ranked[:, top_k - 1] - ranked[:, top_k]).min())
+                for ranked in (probs.sort(-1, descending=True).values
+                               for _, probs in self.calls["cpu"])]
+        if not gaps or min(gaps) < NEAR_TIE:
+            raise AssertionError(f"the CPU's router came within {min(gaps, default=None)} "
+                                 f"of a tie")
+        return min(gaps)
 
     def same_choices(self, top_k) -> int:
         """Raise unless the card chose the CPU's expert sets for every token
@@ -1326,10 +1366,17 @@ def check_k2_backward(gen) -> dict:
     # causal and ragged non-causal
     cases += [((1, 130, 8, 2, 128), dt, True) for dt in (f32, bf16)]
     cases += [((2, 200, 4, 2, 128), dt, False) for dt in (f32, bf16)]
+    # keys of their own length (B, S, H, KV, hd, Sk), non-causal: the seamless
+    # training cross-attention, a ragged GQA pair, 1024 queries (the plain
+    # version chunks them), one key, one query; and the seamless encoder's
+    # self-attention. Each twice, bit for bit.
+    own = [K2_CROSS_SHAPE, (2, 77, 6, 2, 64, 300), (1, 1024, 4, 2, 64, 512),
+           (2, 40, 4, 2, 32, 1), (8, 1, 16, 16, 64, 512), (8, 512, 16, 16, 64)]
+    cases += [(shape, dt, False) for shape in own for dt in (f32, bf16)]
     errors = {}
     for shape, dtype, causal in cases:
-        q, k, v = attention_inputs(gen, *shape, dtype)
-        do = attention_inputs(gen, *shape, dtype)[0]
+        q, k, v = attention_inputs(gen, *shape[:5], dtype, *shape[5:])
+        do = attention_inputs(gen, *shape[:5], dtype, *shape[5:])[0]
         out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
         if not torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal)):
             raise AssertionError(f"K2 {shape}: the output moved with the lse buffer")
@@ -1340,6 +1387,21 @@ def check_k2_backward(gen) -> dict:
         torch.cuda.synchronize()
         errors[f"{shape} {str(dtype)[6:]} causal={causal}"] = {
             "lse_max_abs_err": lse_err, **hold_k2_backward(got, q, k, v, do, causal)}
+        if shape in own:
+            again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K2's backward at {shape} differs between two runs")
+    # causal with Sk != S raises before any launch
+    q, k, v = attention_inputs(gen, 1, 16, 2, 2, 32, bf16, Sk=24)
+    before = (fa.launches, fa.bwd_launches)
+    try:
+        fa.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 2, 16, device="cuda"),
+                                    causal=True)
+        raise AssertionError("K2's backward took causal attention with Sk != S")
+    except ValueError:
+        pass
+    if (fa.launches, fa.bwd_launches) != before:
+        raise AssertionError("K2's backward launched where it raised")
 
     # layers.attend on the card: a graph through K2, nonzero projection grads
     cfg = configs.smoke(DENSE_ARCH)
@@ -1359,7 +1421,8 @@ def check_k2_backward(gen) -> dict:
     for name in ("wq", "wk", "wv"):
         if params[name].grad is None or not params[name].grad.abs().max() > 0:
             raise AssertionError(f"no gradient reached {name} through K2")
-    print(f"K2 backward vs plain on the card: {json.dumps(errors)}; layers.attend "
+    print(f"K2 backward vs plain on the card: {json.dumps(errors)}; keys of their own "
+          f"length twice bit for bit, causal Sk != S raises; layers.attend "
           f"has grad_fn {type(out.grad_fn).__name__}, wq/wk/wv gradients nonzero")
     return errors
 
@@ -1375,9 +1438,11 @@ def assert_trees_close(got, want, what, atol=1e-4, rtol=1e-4) -> float:
 
 def small_train_steps(cfg, params, seed, what):
     """SMALL_TRAIN_STEPS train steps of ``cfg`` from the CPU ``params`` on
-    the CPU and on the card: loss, grad_norm and lr at 1e-4, the updated
-    parameters and moments at atol/rtol 1e-4. Returns the card's
-    (params, opt_state) and the errors."""
+    the CPU and on the card, each step's batch from ``launch.train.train_batch``
+    (the stub frontend's inputs drawn on the CPU, so both devices get the
+    same): loss, grad_norm and lr at 1e-4, the updated parameters and
+    moments at atol/rtol 1e-4. Returns the card's (params, opt_state) and
+    the errors."""
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=SMOKE_PROMPT, global_batch=4, seed=seed)
     trained = {}
@@ -1387,7 +1452,7 @@ def small_train_steps(cfg, params, seed, what):
         step_fn = train.make_train_step(cfg, opt_cfg, total_steps=300)
         metrics = []
         for step in SMALL_TRAIN_STEPS:
-            p, o, m = step_fn(p, o, train.batch_to(host_batch(dcfg, step, 0, 1), device), step)
+            p, o, m = step_fn(p, o, train.train_batch(cfg, dcfg, step, device), step)
             metrics.append({k: float(v) for k, v in m.items()})
         trained[device] = (p, o, metrics)
     torch.cuda.synchronize()
@@ -1481,6 +1546,40 @@ def check_small_ssm_training(seed) -> dict:
     return out
 
 
+def check_small_family_training(seed) -> dict:
+    """The smoke granite-moe, qwen3-moe, seamless-m4t and internvl2 in float32
+    (2 microbatches, remat), held as :func:`small_train_steps` holds them,
+    card against CPU, with the stub frontend's inputs; K2's backward must
+    launch once an attention layer a microbatch on the card (seamless: its
+    encoder's, its decoder's and its cross-attention). For the MoE configs
+    every router call of the CPU run, in every layer, microbatch and step,
+    must keep its tokens' k-th and (k+1)-th probabilities NEAR_TIE apart or
+    more; the smallest gap is recorded. Parameters and data come from
+    ``seed + SMALL_FAMILY_TRAIN_SEED``."""
+    seed += SMALL_FAMILY_TRAIN_SEED
+    out = {}
+    for arch in SMALL_FAMILIES:
+        cfg = dataclasses.replace(configs.smoke(arch), param_dtype="float32",
+                                  compute_dtype="float32", microbatches=2, remat=True)
+        params = family(cfg).init_params(cfg, torch.Generator("cpu").manual_seed(seed),
+                                         device="cpu")
+        bwd = fa.bwd_launches
+        with RouteLog() as routes:
+            _, out[arch] = small_train_steps(cfg, params, seed, arch)
+        want = (expected_train_launches(cfg)["flash_attention_bwd"]
+                * len(SMALL_TRAIN_STEPS))
+        out[arch]["k2_backward_launches"] = fa.bwd_launches - bwd
+        if fa.bwd_launches - bwd != want:
+            raise AssertionError(f"the smoke {arch} train steps launched K2's backward "
+                                 f"{fa.bwd_launches - bwd} times, expected {want}")
+        if cfg.family == "moe":
+            out[arch]["smallest_router_gap"] = routes.smallest_cpu_gap(cfg.top_k)
+        print(f"smoke {arch} (float32): {len(SMALL_TRAIN_STEPS)} train steps, card equals "
+              f"CPU (params {out[arch]['params_max_abs_err']!r}), K2's backward launched "
+              f"{want} times; {json.dumps(out[arch])}")
+    return out
+
+
 def expected_train_launches(cfg) -> dict:
     """The kernels' launches in one train step of ``cfg``: each backward once
     a layer a microbatch, each forward twice under remat (the loss, then the
@@ -1489,6 +1588,8 @@ def expected_train_launches(cfg) -> dict:
     forward = 2 if cfg.remat else 1
     if cfg.family == "hybrid":
         attn, ssm = cfg.n_layers // cfg.shared_attn_every, cfg.n_layers
+    elif cfg.family == "encdec":      # the encoder's, the decoder's and the cross
+        attn, ssm = cfg.encoder_layers + 2 * cfg.n_layers, 0
     else:
         attn, ssm = cfg.n_layers, 0
     return {"quorum_commit": 0, "flash_attention": forward * attn * M,
@@ -1589,16 +1690,35 @@ class StepProbe:
         return rec
 
 
-def training_path(arch, name, seed, n_steps=TRAIN_STEPS) -> dict:
+def model_flops(cfg, tokens) -> tuple[float, str]:
+    """6 N D: the FLOP of a train step over ``tokens`` tokens, and how they
+    were counted. A MoE token passes through its top-k experts only
+    (``active_param_count``); the encoder of encdec and the cross K/V
+    projections of its decoder run over the frames, S / enc_len_ratio a
+    sequence, and the rest over the tokens."""
+    if cfg.family == "moe":
+        return 6 * cfg.active_param_count() * tokens, "6 * active_param_count * tokens"
+    if cfg.family == "encdec":
+        encoder = cfg.param_count() - dataclasses.replace(cfg, encoder_layers=0).param_count()
+        on_frames = encoder + cfg.n_layers * 2 * cfg.d_model * cfg.n_kv_heads * cfg.head_dim
+        frames = tokens // cfg.enc_len_ratio
+        return (6 * ((cfg.param_count() - on_frames) * tokens + on_frames * frames),
+                "6 * (decoder params * tokens + (encoder + cross K/V params) * frames)")
+    return 6 * cfg.param_count() * tokens, "6 * param_count * tokens"
+
+
+def training_path(arch, name, seed, n_steps=TRAIN_STEPS, cut=None) -> dict:
     """``arch`` at full width and depth: ``n_steps`` steps of TRAIN_BATCH x
-    TRAIN_SEQ tokens from the port's data pipeline, through
-    ``launch.train.make_train_step`` (the configuration's 2 microbatches,
-    remat, bf16 parameters, float32 moments), each with what
+    TRAIN_SEQ tokens from the port's data pipeline (``launch.train.train_batch``,
+    with the stub frontend's inputs: 512 frames a sequence for encdec),
+    through ``launch.train.make_train_step`` (the configuration's
+    microbatches, remat, bf16 parameters, float32 moments), each with what
     :class:`StepProbe` sees in it, then one profiled step. Each step must
     launch the kernels :func:`expected_train_launches` counts. The step time
     is given as the mean and the median of the steps after the first; steps
-    25% above that median are listed as slow."""
-    cfg = configs.get(arch)
+    25% above that median are listed as slow. ``cut`` replaces fields of the
+    configuration where the path does not fit the card as configured."""
+    cfg = dataclasses.replace(configs.get(arch), **(cut or {}))
     fam = family(cfg)
     t0 = time.perf_counter()
     params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
@@ -1610,14 +1730,14 @@ def training_path(arch, name, seed, n_steps=TRAIN_STEPS) -> dict:
     setup_s = time.perf_counter() - t0
     per_step = expected_train_launches(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = 6 * cfg.param_count() * tokens
+    flops, flops_counted_as = model_flops(cfg, tokens)
 
     steps = []
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     with StepProbe() as probe:
         for step in range(n_steps):
-            batch = train.batch_to(host_batch(dcfg, step, 0, 1), "cuda")
+            batch = train.train_batch(cfg, dcfg, step, "cuda")
             before = launch_counts()
             probe.begin()
             t0 = time.perf_counter()
@@ -1651,14 +1771,14 @@ def training_path(arch, name, seed, n_steps=TRAIN_STEPS) -> dict:
     step_s, median_s = float(np.mean(steady)), float(np.median(steady))
     slow = [s for s in steps[1:] if s["step_s"] > 1.25 * median_s]
 
-    batch = train.batch_to(host_batch(dcfg, n_steps, 0, 1), "cuda")
+    batch = train.train_batch(cfg, dcfg, n_steps, "cuda")
     profile = profile_device(lambda: step_fn(params, opt_state, batch, n_steps),
                              watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_bf16_kernel",
                                     "attn_bwd_dq_bf16_kernel", "ssd_intra_chunk_kernel",
                                     "ssd_bwd_heads_kernel", "ssd_bwd_bc_kernel"))
     summary = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+        "params": cfg.param_count(), "param_dtype": cfg.param_dtype, "cut": cut or {},
         "moment_dtype": cfg.opt_state_dtype, "microbatches": cfg.microbatches,
         "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "tokens_per_step": tokens, "setup_s": setup_s, "steps": steps,
@@ -1668,17 +1788,23 @@ def training_path(arch, name, seed, n_steps=TRAIN_STEPS) -> dict:
         "tokens_per_s_at_median": tokens / median_s,
         "first_step_s": steps[0]["step_s"], "ln_vocab": ln_vocab,
         "peak_mem_gib": peak, "launches": launches, "launches_per_step": per_step,
-        "model_flops_per_step": flops,
+        "model_flops_per_step": flops, "model_flops_counted_as": flops_counted_as,
         "bf16_peak_flops": BF16_OPS_PER_S,
         "bf16_peak_source": "NVIDIA H100 SXM data sheet, dense bf16 tensor cores",
         "model_flops_share_of_peak": flops / step_s / BF16_OPS_PER_S,
         "profile": profile,
     }
+    if cfg.family == "moe":
+        summary["capacity"] = moe.capacity(cfg, tokens // cfg.microbatches)
+        summary["active_params"] = cfg.active_param_count()
+    if cfg.family == "encdec":
+        summary["frames"] = TRAIN_SEQ // cfg.enc_len_ratio
     print(f"training {cfg.name}: {n_steps} steps x {tokens} tokens, "
           f"{step_s:.3f} s/step after the first, median {median_s:.3f}, slow steps "
           f"{summary['slow_steps']} ({tokens / step_s:.0f} tokens/s, "
-          f"{summary['model_flops_share_of_peak']:.3f} of the bf16 peak in 6·N·tokens), "
-          f"first loss {steps[0]['loss']:.4f} (ln V {ln_vocab:.4f}), peak {peak:.2f} GiB")
+          f"{summary['model_flops_share_of_peak']:.3f} of the bf16 peak at {flops:.4g} FLOP "
+          f"a step, {flops_counted_as}), first loss {steps[0]['loss']:.4f} "
+          f"(ln V {ln_vocab:.4f}), peak {peak:.2f} GiB")
     print(json.dumps({name: summary}))
     return summary
 
@@ -1847,6 +1973,44 @@ def time_k2_backward(gen) -> dict:
                   **errors, library_max_abs_err=lib_err)
 
 
+def time_k2_backward_cross(gen) -> dict:
+    """K2's backward at the seamless-m4t-medium training cross-attention
+    (2048 queries against 512 keys, non-causal, bf16): kernel, the plain
+    version's autograd backward and SDPA's backward."""
+    B, S, H, KV, hd, Sk = K2_CROSS_SHAPE
+    q, k, v = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16, Sk=Sk)
+    do = attention_inputs(gen, B, S, H, KV, hd, torch.bfloat16)[0]
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain_out = fa.flash_attention_plain(*leaves, causal=False)
+    lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        *lib_leaves, is_causal=False, enable_gqa=True)
+    lib_do = do.transpose(1, 2).contiguous()
+
+    def kernel(i):
+        return fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=False)
+
+    def plain(i):
+        return torch.autograd.grad(plain_out, leaves, do, retain_graph=True)
+
+    def library(i):
+        return torch.autograd.grad(lib_out, lib_leaves, lib_do, retain_graph=True)
+
+    got = kernel(0)
+    torch.cuda.synchronize()
+    errors = hold_k2_backward(got, q, k, v, do, False)   # held at the path's shape
+    print(f"K2 backward vs plain at {list(K2_CROSS_SHAPE)} bf16: {json.dumps(errors)}")
+    lib_err = max(max_err(g, w.transpose(1, 2)) for g, w in zip(got, library(0)))
+    ops_ = 10 * B * H * hd * S * Sk              # five products, no mask
+    # q, do, dq and k, v, dk, dv once each in bf16, lse in float32
+    moved = 2 * (3 * B * S * H * hd + 4 * B * Sk * KV * hd) + 4 * B * H * S
+    return timing("flash_attention_bwd", list(K2_CROSS_SHAPE), kernel, plain, library,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  max_abs_err=max(errors[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
+                  **errors, library_max_abs_err=lib_err)
+
+
 def library_times(library) -> dict:
     """The library call's device time, or its time per call (CUDA events)
     where the profiler records no device time for it."""
@@ -1923,12 +2087,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     encdec_serving = serving_path(ENCDEC_ARCH, args.seed, "encdec_serving_path")
     torch.cuda.empty_cache()
+    # their training, after every earlier path
+    check_small_family_training(args.seed)
+    moe_training = training_path(MOE_ARCH, "moe_training_path", args.seed, args.train_steps)
+    torch.cuda.empty_cache()
+    encdec_training = training_path(ENCDEC_ARCH, "encdec_training_path", args.seed,
+                                    args.train_steps, cut=ENCDEC_TRAIN_CUT)
+    torch.cuda.empty_cache()
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
     k2, k3, k2b, k3b = time_k2(gen), time_k3(gen), time_k2_backward(gen), time_k3_backward(gen)
     k2["shapes"] = [time_k2_cross(gen)]
+    k2b["shapes"] = [time_k2_backward_cross(gen)]
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",
@@ -1947,11 +2119,17 @@ def main() -> int:
         f"seamless_decode_{SERVE_DECODE}_steps":
             encdec_serving["decode_launches"]["flash_attention"],
         f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention"],
-        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention"]}
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention"],
+        f"granite_train_{args.train_steps}_steps": moe_training["launches"]["flash_attention"],
+        f"seamless_train_{args.train_steps}_steps":
+            encdec_training["launches"]["flash_attention"]}
     k2b["launches_per_train_step"] = training["launches_per_step"]["flash_attention_bwd"]
     k2b["launches_by_path"] = {
         f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention_bwd"],
-        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention_bwd"]}
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention_bwd"],
+        f"granite_train_{args.train_steps}_steps": moe_training["launches"]["flash_attention_bwd"],
+        f"seamless_train_{args.train_steps}_steps":
+            encdec_training["launches"]["flash_attention_bwd"]}
     k3["launches_by_path"] = {
         "zamba2_prefill": serving["launches"]["ssd_scan"],
         f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["ssd_scan"]}

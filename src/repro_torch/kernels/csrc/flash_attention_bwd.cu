@@ -1,6 +1,7 @@
-// K2's backward on Hopper: dQ, dK and dV of causal or non-causal GQA
-// self-attention, by recompute from the forward's log-sum-exp, with no
-// atomics.
+// K2's backward on Hopper: dQ, dK and dV of causal GQA self-attention, or
+// of non-causal GQA attention with keys of their own length (an
+// encoder-decoder's cross-attention), by recompute from the forward's
+// log-sum-exp, with no atomics.
 //
 // The JAX package takes this gradient by differentiating `layers.attend`
 // (src/repro/models/layers.py:188), which the Pallas TPU kernel of
@@ -9,16 +10,20 @@
 // plain PyTorch version is the autograd gradient of `flash_attention_plain`
 // in src/repro_torch/kernels/flash_attention.py.
 //
-// For q, dO (B,S,H,hd), k, v (B,S,KV,hd), float32 or bfloat16, and the
+// For q, dO (B,S,H,hd), k, v (B,Sk,KV,hd), float32 or bfloat16, and the
 // forward's lse (B,H,S) float32, with query head h reading kv head
 // h / (H/KV), s_ij = q_i . k_j * hd^-0.5 (masked: j > i when causal, and
-// j >= S), P_ij = exp(s_ij - lse_i), dP_ij = dO_i . v_j, D_i = sum_j P_ij dP_ij,
+// j >= Sk), P_ij = exp(s_ij - lse_i), dP_ij = dO_i . v_j, D_i = sum_j P_ij dP_ij,
 // dS_ij = P_ij (dP_ij - D_i):
 //   dQ_i = hd^-0.5 sum_j dS_ij k_j,
 //   dK_j = hd^-0.5 sum over the G query heads of kv head j's head and over i
 //          of dS_ij q_i,
 //   dV_j = sum likewise of P_ij dO_i.
-// Gradients are rounded to the inputs' dtype once, at the end.
+// Gradients are rounded to the inputs' dtype once, at the end. Causal
+// attention needs Sk == S, which the wrapper checks (the reference aligns a
+// causal mask of Sk != S at the top left, and no model asks for it); K, V,
+// dK and dV take Sk as their sequence length, Q, dO, dQ, the lse and the
+// scratch S.
 //
 // D_i equals dO_i . o_i for the exact o; it is taken from the recomputed P
 // and dP, not from the forward's output o, because in bf16 o is rounded: an
@@ -31,7 +36,11 @@
 // Bound: operations. At the training shape (B 4, S 2048, H 16, KV 8, hd
 // 128, causal) the five products of the gradient take 10 B H hd S(S+1)/2 =
 // 1.72e11 FLOP against 168 MB of inputs and outputs (0.174 ms at the bf16
-// tensor cores' 989 TFLOP/s, 0.050 ms of bytes at 3.35 TB/s).
+// tensor cores' 989 TFLOP/s, 0.050 ms of bytes at 3.35 TB/s). Keys of their
+// own length take 10 B H hd S Sk: at the seamless-m4t-medium training
+// cross-attention (B 8, S 2048, Sk 512, H 16, KV 16, hd 64, non-causal)
+// 8.59e10 FLOP against about 137 MB (0.087 ms of operations, 0.041 ms of
+// bytes).
 //
 // The dtype selects the kernels; nothing falls back from one pair to the
 // other.
@@ -67,8 +76,10 @@
 //     dK += dS^T Q, with dO and Q through ldmatrix.trans.
 //   * The tile index is the grid's slowest axis, so the heaviest causal
 //     tiles (the last q tiles for dQ, the first key tiles for dK/dV) start
-//     first. Masked entries are selected to 0, on the diagonal and ragged
-//     tiles only. Rows and keys past S are zero-filled by cp.async; their
+//     first. D/dQ walks ceil(Sk / 64) key tiles (non-causal) and dK/dV has
+//     ceil(Sk / 64) blocks a (b, kv head), each walking every q tile.
+//     Masked entries are selected to 0, on the diagonal and ragged tiles
+//     only. Rows past S and keys past Sk are zero-filled by cp.async; their
 //     results are never stored. Outputs are staged through the warp's own
 //     rows of shared memory into 16-byte stores. hd 16, 32, 64, 128.
 //   * Registers (nvcc -O3 for sm_90a, as chip_smoke.py prints them): D/dQ
@@ -82,7 +93,7 @@
 //   * D/dQ: one block of 256 threads per (b, head, 64-row q tile) keeps Q,
 //     dO and lse in shared memory and its two accumulators in registers
 //     (thread (tr, tc) owns rows tr + 16a and columns tc + 16c), and walks
-//     the k tiles at or below the diagonal, heaviest q tiles first, forming
+//     the k tiles at or below the diagonal (all ceil(Sk / 64), non-causal), heaviest q tiles first, forming
 //     dQ_i = hd^-0.5 (sum_j P_ij dP_ij k_j - D_i sum_j P_ij k_j) in one pass;
 //     it writes D to the scratch for dK/dV.
 //   * dK/dV: one block of 256 threads per (b, kv head, 64-key tile) keeps
@@ -162,17 +173,18 @@ __device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4], cons
 }
 
 // s <- P = exp(s scale - lse), masked logits at -1e30, for the thread's rows
-// (q0 + tr + 16a) and keys (k0 + tc + 16c); rows or keys at or past S are
-// masked
+// (q0 + tr + 16a) and keys (k0 + tc + 16c); rows at or past S and keys at or
+// past Sk are masked
 __device__ __forceinline__ void probs(float (&s)[4][4], const float* ls, int q0, int k0,
-                                      int tr, int tc, int S, float scale, bool causal) {
+                                      int tr, int tc, int S, int Sk, float scale,
+                                      bool causal) {
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = tr + 16 * a, i = q0 + r;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int j = k0 + tc + 16 * c;
-      const bool keep = i < S && j < S && (!causal || j <= i);
+      const bool keep = i < S && j < Sk && (!causal || j <= i);
       s[a][c] = expf((keep ? s[a][c] * scale : kNegInf) - ls[r]);
     }
   }
@@ -197,7 +209,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ D,
-    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int KV, float scale,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int Sk, int H, int KV, float scale,
     bool causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int P = pitch<HD>();
@@ -217,9 +229,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_f32_kernel(
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-  load_tile<HD>(ks, k + kv_off, kv_stride, k0, S);
-  load_tile<HD>(vs, v + kv_off, kv_stride, k0, S);
+  const int64_t kv_off = (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  load_tile<HD>(ks, k + kv_off, kv_stride, k0, Sk);
+  load_tile<HD>(vs, v + kv_off, kv_stride, k0, Sk);
 
   float dk_acc[4][NC], dv_acc[4][NC];
 #pragma unroll
@@ -244,7 +256,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_f32_kernel(
 
       float s[4][4], dp[4][4];
       scores<HD>(s, dp, qs, dos, ks, vs, tr, tc);
-      probs(s, ls, q0, k0, tr, tc, S, scale, causal);
+      probs(s, ls, q0, k0, tr, tc, S, Sk, scale, causal);
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -283,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_f32_kernel(
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int j = k0 + tr + 16 * a;
-    if (j >= S) continue;
+    if (j >= Sk) continue;
     const int64_t off = kv_off + static_cast<int64_t>(j) * kv_stride;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -298,7 +310,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads) attn_bwd_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ D,
-    float* __restrict__ dq, int S, int H, int KV, float scale, bool causal) {
+    float* __restrict__ dq, int S, int Sk, int H, int KV, float scale, bool causal) {
   extern __shared__ __align__(16) float smem[];
   constexpr int P = pitch<HD>();
   constexpr int NC = HD / 16;
@@ -319,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_f32_kernel(
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
   const int64_t q_off = (static_cast<int64_t>(b) * S * H + h) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S * KV + kvh) * HD;
+  const int64_t kv_off = (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
   const int64_t stat_off = (static_cast<int64_t>(b) * H + h) * S;
   load_tile<HD>(qs, q + q_off, q_stride, q0, S);
   load_tile<HD>(dos, dout + q_off, q_stride, q0, S);
@@ -335,17 +347,19 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_f32_kernel(
     for (int c = 0; c < NC; ++c) pdk[a][c] = pk[a][c] = 0.0f;
   }
 
-  const int n_kt = causal ? qt + 1 : n_qt;  // k tiles at or below the diagonal
+  // k tiles at or below the diagonal; every one of the Sk keys' tiles when
+  // non-causal
+  const int n_kt = causal ? qt + 1 : (Sk + kTile - 1) / kTile;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile is consumed (and Q, dO are loaded)
-    load_tile<HD>(ks, k + kv_off, kv_stride, k0, S);
-    load_tile<HD>(vs, v + kv_off, kv_stride, k0, S);
+    load_tile<HD>(ks, k + kv_off, kv_stride, k0, Sk);
+    load_tile<HD>(vs, v + kv_off, kv_stride, k0, Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
     scores<HD>(s, dp, qs, dos, ks, vs, tr, tc);
-    probs(s, ls, q0, k0, tr, tc, S, scale, causal);
+    probs(s, ls, q0, k0, tr, tc, S, Sk, scale, causal);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -419,7 +433,7 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ scratch,
-    bf16* __restrict__ dq, int S, int H, int KV, float scale, bool causal) {
+    bf16* __restrict__ dq, int S, int Sk, int H, int KV, float scale, bool causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
   constexpr int kSteps = HD / 16;  // k steps of Q K^T; pairs of 8-column tiles of dQ
@@ -442,18 +456,20 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
   const bf16* qb = q + (static_cast<int64_t>(b) * S * H + h) * HD;
   const bf16* dob = dout + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const bf16* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
-  const bf16* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * HD;
+  const bf16* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  const bf16* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
   float* D_out = scratch + stat;
   float* lse2_out = scratch + static_cast<int64_t>(gridDim.y) * H * S + stat;
   const float scale_log2 = scale * kLog2e;
 
-  const int n_kt = causal ? qt + 1 : n_qt;  // k tiles at or below the diagonal
+  // k tiles at or below the diagonal; every one of the Sk keys' tiles when
+  // non-causal
+  const int n_kt = causal ? qt + 1 : (Sk + kBT - 1) / kBT;
   tc_load_rows<HD, kBT>(qs, qb, q_stride, q0, S);
   tc_load_rows<HD, kBT>(dos, dob, q_stride, q0, S);
-  tc_load_rows<HD, kBT>(ks, kb, kv_stride, 0, S);
-  tc_load_rows<HD, kBT>(vs, vb, kv_stride, 0, S);
+  tc_load_rows<HD, kBT>(ks, kb, kv_stride, 0, Sk);
+  tc_load_rows<HD, kBT>(vs, vb, kv_stride, 0, Sk);
   cp_async_commit();
 
   // the lane's rows g and g + 8 of the warp: -(lse log2 e), then -(lse' log2 e)
@@ -483,8 +499,8 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
     if (it + 1 < 2 * n_kt) {  // copy the next tile while this one is used
       const int nk = it + 1 < n_kt ? it + 1 : it + 1 - n_kt;
       const int nxt = (it + 1) & 1;
-      tc_load_rows<HD, kBT>(ks + nxt * kBT * P, kb, kv_stride, nk * kBT, S);
-      tc_load_rows<HD, kBT>(vs + nxt * kBT * P, vb, kv_stride, nk * kBT, S);
+      tc_load_rows<HD, kBT>(ks + nxt * kBT * P, kb, kv_stride, nk * kBT, Sk);
+      tc_load_rows<HD, kBT>(vs + nxt * kBT * P, vb, kv_stride, nk * kBT, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -539,7 +555,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
 
     // P = 2^(s scale log2 e - lse log2 e); s[.][0..1] are row g, s[.][2..3]
     // row g + 8. Masked entries are 0.
-    const bool masked = k0 + kBT > S || (causal && k0 + kBT - 1 > row0);
+    const bool masked = k0 + kBT > Sk || (causal && k0 + kBT - 1 > row0);
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
@@ -548,7 +564,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
         if (masked) {
           const int kpos = k0 + 8 * j + 2 * t + (e & 1);
           const int qpos = row0 + g + 8 * (e >> 1);
-          if (kpos >= S || (causal && kpos > qpos)) p = 0.0f;
+          if (kpos >= Sk || (causal && kpos > qpos)) p = 0.0f;
         }
         s[j][e] = p;
       }
@@ -610,7 +626,7 @@ template <int HD>
 __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ scratch, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int H, int KV, float scale, bool causal) {
+    bf16* __restrict__ dv, int S, int Sk, int H, int KV, float scale, bool causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
   constexpr int QR = dkdv_qrows<HD>();  // q rows of a q tile
@@ -632,20 +648,21 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
   const int kw = k0 + warp * 16;  // the warp's first key
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S * KV + kvh) * HD;
+  const int64_t kv_off = (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
   const float* D_in = scratch;
   const float* lse2_in = scratch + static_cast<int64_t>(gridDim.y) * H * S;
   const float scale_log2 = scale * kLog2e;
 
   // the walk: it = g nq + (qt - qt0) over the G query heads and the q tiles
-  // that hold a row at or below the diagonal of this key tile
+  // that hold a row at or below the diagonal of this key tile (every q
+  // tile, non-causal)
   const int n_qt = (S + QR - 1) / QR;
   const int qt0 = causal ? k0 / QR : 0;
   const int nq = n_qt - qt0;
   const int n_it = G * nq;
 
-  tc_load_rows<HD, kBT>(ks, k + kv_off, kv_stride, k0, S);
-  tc_load_rows<HD, kBT>(vs, v + kv_off, kv_stride, k0, S);
+  tc_load_rows<HD, kBT>(ks, k + kv_off, kv_stride, k0, Sk);
+  tc_load_rows<HD, kBT>(vs, v + kv_off, kv_stride, k0, Sk);
   {
     const int64_t q_off = (static_cast<int64_t>(b) * S * H + kvh * G) * HD;
     tc_load_rows<HD, QR>(qs, q + q_off, q_stride, qt0 * QR, S);
@@ -794,7 +811,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
   constexpr int kChunks = HD / 8;
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks, d0 = (c % kChunks) * 8;
-    if (kw + r < S) {
+    if (kw + r < Sk) {
       const int64_t off = kv_off + static_cast<int64_t>(kw + r) * kv_stride + d0;
       *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(kout + r * P + d0);
       *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(vout + r * P + d0);
@@ -804,23 +821,23 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-               float* scratch, void* dq, void* dk, void* dv, int B, int S, int H, int KV,
-               bool causal, cudaStream_t stream) {
+               float* scratch, void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
+               int KV, bool causal, cudaStream_t stream) {
   const float* q_ = static_cast<const float*>(q);
   const float* k_ = static_cast<const float*>(k);
   const float* v_ = static_cast<const float*>(v);
   const float* do_ = static_cast<const float*>(dout);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));  // float(hd ** -0.5)
-  const int n_t = (S + kTile - 1) / kTile;
+  const int n_qt = (S + kTile - 1) / kTile, n_kt = (Sk + kTile - 1) / kTile;
 
   auto dqk = attn_bwd_dq_f32_kernel<HD>;  // D, then dQ
   constexpr int dq_bytes = dq_f32_smem_bytes<HD>();
   cudaError_t err =
       cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(n_t, H, B), kThreads, dq_bytes, stream>>>(q_, k_, v_, do_, lse, scratch,
-                                                       static_cast<float*>(dq), S, H, KV, scale,
-                                                       causal);
+  dqk<<<dim3(n_qt, H, B), kThreads, dq_bytes, stream>>>(q_, k_, v_, do_, lse, scratch,
+                                                        static_cast<float*>(dq), S, Sk, H, KV,
+                                                        scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -828,30 +845,30 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
   constexpr int dkdv_bytes = dkdv_f32_smem_bytes<HD>();
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<dim3(n_t, KV, B), kThreads, dkdv_bytes, stream>>>(
-      q_, k_, v_, do_, lse, scratch, static_cast<float*>(dk), static_cast<float*>(dv), S, H, KV,
-      scale, causal);
+  dkdv<<<dim3(n_kt, KV, B), kThreads, dkdv_bytes, stream>>>(
+      q_, k_, v_, do_, lse, scratch, static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, H,
+      KV, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                float* scratch, void* dq, void* dk, void* dv, int B, int S, int H, int KV,
-                bool causal, cudaStream_t stream) {
+                float* scratch, void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
+                int KV, bool causal, cudaStream_t stream) {
   const bf16* q_ = static_cast<const bf16*>(q);
   const bf16* k_ = static_cast<const bf16*>(k);
   const bf16* v_ = static_cast<const bf16*>(v);
   const bf16* do_ = static_cast<const bf16*>(dout);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));  // float(hd ** -0.5)
-  const int n_t = (S + kBT - 1) / kBT;
+  const int n_qt = (S + kBT - 1) / kBT, n_kt = (Sk + kBT - 1) / kBT;
 
   auto dqk = attn_bwd_dq_bf16_kernel<HD>;  // D and lse', then dQ
   constexpr int dq_bytes = dq_bf16_smem_bytes<HD>();
   cudaError_t err =
       cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(H, B, n_t), kTcThreads, dq_bytes, stream>>>(
-      q_, k_, v_, do_, lse, scratch, static_cast<bf16*>(dq), S, H, KV, scale, causal);
+  dqk<<<dim3(H, B, n_qt), kTcThreads, dq_bytes, stream>>>(
+      q_, k_, v_, do_, lse, scratch, static_cast<bf16*>(dq), S, Sk, H, KV, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -859,43 +876,44 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
   constexpr int dkdv_bytes = dkdv_bf16_smem_bytes<HD>();
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<dim3(KV, B, n_t), kTcThreads, dkdv_bytes, stream>>>(
-      q_, k_, v_, do_, scratch, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, KV, scale,
-      causal);
+  dkdv<<<dim3(KV, B, n_kt), kTcThreads, dkdv_bytes, stream>>>(
+      q_, k_, v_, do_, scratch, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, KV,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           float* scratch, void* dq, void* dk, void* dv, int B, int S, int H, int KV,
+           float* scratch, void* dq, void* dk, void* dv, int B, int S, int Sk, int H, int KV,
            bool causal, bool is_bf16, cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<HD>(q, k, v, dout, lse, scratch, dq, dk, dv, B, S, H, KV, causal,
-                                   stream)
-                 : launch_f32<HD>(q, k, v, dout, lse, scratch, dq, dk, dv, B, S, H, KV, causal,
-                                  stream);
+  return is_bf16 ? launch_bf16<HD>(q, k, v, dout, lse, scratch, dq, dk, dv, B, S, Sk, H, KV,
+                                   causal, stream)
+                 : launch_f32<HD>(q, k, v, dout, lse, scratch, dq, dk, dv, B, S, Sk, H, KV,
+                                  causal, stream);
 }
 
 }  // namespace
 
 // Launches the D/dQ kernel, then the dK/dV kernel, on `stream` and returns
 // the first CUDA error, or 0. The wrapper has checked shapes, dtypes,
-// contiguity and alignment; hd is 16, 32, 64 or 128; `scratch` is float32
-// (2, B, H, S): D, then (bf16 only) lse'; dq, dk, dv have the inputs' dtype
-// and shapes, and every element of them is written.
+// contiguity and alignment; hd is 16, 32, 64 or 128; Sk >= 1, and causal
+// only where Sk == S; `scratch` is float32 (2, B, H, S): D, then (bf16 only)
+// lse'; dq, dk, dv have the inputs' dtype and shapes, and every element of
+// them is written.
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse, void* scratch,
                                           void* dq, void* dk, void* dv, int B, int S,
-                                          int H, int KV, int hd, int causal, int is_bf16,
-                                          void* stream) {
+                                          int Sk, int H, int KV, int hd, int causal,
+                                          int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = causal != 0, bf = is_bf16 != 0;
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, c, bf, s);
-    case 32: return launch<32>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, c, bf, s);
-    case 64: return launch<64>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, c, bf, s);
-    case 128: return launch<128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, H, KV, c, bf, s);
+    case 16: return launch<16>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
+    case 32: return launch<32>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
+    case 64: return launch<64>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
+    case 128: return launch<128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,8 +8,10 @@ logits are ``-1e30``; the output has q's dtype.
 
 Its gradient is K2's backward (``csrc/flash_attention_bwd.cu``), which the
 JAX package takes by differentiating ``repro.models.layers.attend``; it takes
-self-attention only, so a CUDA call with ``Sk != S`` that wants a gradient
-raises ``NotImplementedError``.
+what the forward takes, keys of their own length included, so a CUDA call
+that wants a gradient goes through :class:`FlashAttention` whatever ``Sk``
+is (causal attention with ``Sk != S`` raises before any launch, forward or
+backward).
 
 The functions:
   * :func:`flash_attention_cuda` launches the hand-written CUDA kernel
@@ -23,7 +25,8 @@ The functions:
     ``return_lse`` it also returns each row's log-sum-exp;
   * :func:`flash_attention_bwd_cuda` launches the backward kernels
     (``csrc/flash_attention_bwd.cu``): dq, dk, dv from q, k, v, do and the
-    log-sum-exp, by recompute and with no atomics. bfloat16 runs two
+    log-sum-exp, by recompute and with no atomics, for any key length that
+    the forward takes. bfloat16 runs two
     tensor-core kernels (``mma.sync`` bf16, dS and P rounded to bf16 as
     A operands), float32 two CUDA-core kernels;
   * :class:`FlashAttention` is the ``torch.autograd.Function`` of the two;
@@ -97,13 +100,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """K2 on the inputs' device: the kernel for CUDA (differentiable through
-    the backward kernel where ``Sk == S``), the plain version for the CPU."""
+    the backward kernel), the plain version for the CPU."""
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-            if k.shape[1] != q.shape[1]:
-                raise NotImplementedError(
-                    "flash_attention: K2's backward takes self-attention only; "
-                    f"no gradient for {q.shape[1]} queries against {k.shape[1]} keys")
             return FlashAttention.apply(q, k, v, causal)
         return flash_attention_cuda(q, k, v, causal=causal)
     if q.device.type == "cpu":
@@ -126,7 +125,7 @@ def _bwd_launcher():
     fn = _build.library("flash_attention_bwd").flash_attention_bwd_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr] * 9 + [i32] * 7 + [ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -135,8 +134,8 @@ def _check(name: str, q, k, v, do=None, *, causal=True):
     """Raise unless q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for the
     backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
     of one dtype on one device that the kernels take. ``Sk`` may differ from
-    ``S`` (and be at least 1) only for the non-causal forward. Returns
-    (B, S, Sk, H, KV, hd)."""
+    ``S`` (and be at least 1) only for non-causal attention, forward or
+    backward. Returns (B, S, Sk, H, KV, hd)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -145,9 +144,9 @@ def _check(name: str, q, k, v, do=None, *, causal=True):
     if (k.shape[0], k.shape[3]) != (B, hd) or KV == 0 or H % KV:
         raise ValueError(f"{name}: q and k must share B and hd, with H a multiple "
                          f"of KV; got q {tuple(q.shape)}, k {tuple(k.shape)}")
-    if Sk != S and (causal or do is not None or Sk == 0):
+    if Sk != S and (causal or Sk == 0):
         raise ValueError(f"{name}: keys of their own length (here {Sk} for {S} "
-                         f"queries) only for the non-causal forward, and at least 1")
+                         f"queries) only for non-causal attention, and at least 1")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"{name}: do must have q's shape {tuple(q.shape)}; got "
                          f"{tuple(do.shape)}")
@@ -202,14 +201,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
     """Launch K2's backward kernel on the current stream: ``(dq, dk, dv)`` in
     the inputs' dtype from q, k, v, the output's gradient ``do`` (q's shape
-    and dtype) and the forward's float32 log-sum-exp ``(B,H,S)``. Takes what
-    :func:`flash_attention_cuda` takes for self-attention (``Sk == S``);
-    raises on anything else and when a launch fails. (The forward's output
+    and dtype) and the forward's float32 log-sum-exp ``(B,H,S)``; dk and dv
+    have k's shape. Takes what :func:`flash_attention_cuda` takes (keys of
+    their own length for non-causal attention); raises on anything else and
+    when a launch fails. (The forward's output
     is not needed: the kernel takes rowsum(do * o) from the recomputed
     probabilities, which in bf16 is more accurate than from the rounded
     output; see the source.)"""
     global bwd_launches
-    B, S, _, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do)
+    B, S, Sk, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do, causal=causal)
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (B, H, S)
             or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd_cuda: lse must be a contiguous float32 "
@@ -222,7 +222,8 @@ def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
     scratch = torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_launcher()(*(x.data_ptr() for x in (q, k, v, do, lse, scratch, dq, dk, dv)),
-                              B, S, H, KV, hd, int(causal), int(q.dtype == torch.bfloat16),
+                              B, S, Sk, H, KV, hd, int(causal),
+                              int(q.dtype == torch.bfloat16),
                               torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: kernel launch failed with "

@@ -15,7 +15,7 @@ import time
 import torch
 
 from repro_torch import configs, default_device
-from repro_torch.models import family
+from repro_torch.models import family, stub_inputs
 
 
 def make_prefill_step(cfg, cache_len=None):
@@ -42,19 +42,10 @@ def prefix_len(cfg) -> int:
 
 def make_batch(cfg, generator: torch.Generator, B: int, S: int) -> dict:
     """A random request batch on the generator's device: ``tokens`` (B, S)
-    and the stub frontends' inputs, ``frames`` (B, S // enc_len_ratio, d)
-    for encdec and ``image_embeds`` (B, n_image_tokens, d) for vlm, in the
-    compute dtype."""
-    device = generator.device
-    batch = {"tokens": torch.randint(2, cfg.vocab, (B, S), generator=generator,
-                                     device=device)}
-    stub = {"encdec": ("frames", S // cfg.enc_len_ratio),
-            "vlm": ("image_embeds", cfg.n_image_tokens)}.get(cfg.family)
-    if stub is not None:
-        name, length = stub
-        batch[name] = torch.randn((B, length, cfg.d_model), generator=generator,
-                                  device=device).to(cfg.dtype())
-    return batch
+    and the stub frontends' inputs (``models.stub_inputs``)."""
+    tokens = torch.randint(2, cfg.vocab, (B, S), generator=generator,
+                           device=generator.device)
+    return {"tokens": tokens, **stub_inputs(cfg, generator, B, S)}
 
 
 # ---------------------------------------------------------------------------

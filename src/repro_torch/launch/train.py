@@ -14,9 +14,13 @@ one device: the sharding rules wait for ``launch/shardings``).
 It updates the parameters and moments in place (the JAX package donates
 them) and returns the same trees.
 
-CLI (on CUDA unless ``--device cpu``; ``--arch`` a configuration of the
-dense, ssm or hybrid family, e.g. qwen3-1.7b, zamba2-1.2b or mamba2-780m;
-the moe, encdec and vlm families serve but do not train yet):
+Every family trains. A batch holds ``tokens``, ``targets`` and ``mask``
+(B, S) and, for encdec and vlm, the stub frontend's ``frames`` or
+``image_embeds`` (:func:`train_batch`); the microbatch split cuts every key
+on its first dimension.
+
+CLI (on CUDA unless ``--device cpu``; ``--arch`` any configuration, e.g.
+qwen3-1.7b, zamba2-1.2b, granite-moe-3b-a800m or seamless-m4t-medium):
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --arch zamba2-1.2b
 """
 
@@ -26,11 +30,12 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import configs, default_device
 from repro_torch.data import DataConfig, host_batch
-from repro_torch.models import family
+from repro_torch.models import family, stub_inputs
 from repro_torch.optim import AdamWConfig, adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -53,18 +58,9 @@ def _fill(tree, it):
     return next(it)
 
 
-# families whose loss_fn (and, for encdec, K2's backward with keys of their
-# own length) the port does not have yet
-UNTRAINED = ("moe", "encdec", "vlm")
-
-
 def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
                     quorum=None):
-    """The train step of ``cfg``; raises ``NotImplementedError`` for a family
-    that serves but does not train yet (``UNTRAINED``)."""
-    if cfg.family in UNTRAINED:
-        raise NotImplementedError(f"training the {cfg.family} family ({cfg.name}) is "
-                                  f"not ported to repro_torch yet; it serves only")
+    """The train step of ``cfg``."""
     fam = family(cfg)
 
     def loss_for(p, mb):
@@ -106,6 +102,18 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
 def batch_to(batch: dict, device) -> dict:
     """A numpy batch from ``data.host_batch`` as tensors on ``device``."""
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def train_batch(cfg, dcfg: DataConfig, step: int, device) -> dict:
+    """Step ``step``'s batch on ``device``: ``data.host_batch``'s tokens,
+    targets and mask, and the stub frontend's inputs (``models.stub_inputs``)
+    drawn on the CPU from a generator seeded by ``dcfg.seed`` and the step, so
+    that every device gets the same batch."""
+    batch = batch_to(host_batch(dcfg, step, 0, 1), device)
+    seed = int(np.random.SeedSequence([dcfg.seed, step]).generate_state(1, np.uint64)[0])
+    stub = stub_inputs(cfg, torch.Generator().manual_seed(seed), dcfg.global_batch,
+                       dcfg.seq_len)
+    return {**batch, **{k: t.to(device) for k, t in stub.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +164,7 @@ def main(argv=None):
 
     metrics = {}
     for step in range(step0, args.steps):
-        batch = batch_to(host_batch(dcfg, step, 0, 1), device)
+        batch = train_batch(cfg, dcfg, step, device)
         t0 = time.time()
         params, opt_state, metrics = train_step(params, opt_state, batch, step)
         loss = float(metrics["loss"])

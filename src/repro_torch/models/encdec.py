@@ -13,7 +13,14 @@ place, and reads ``mk``/``mv`` as they are. Every attention goes through
 ``layers.attend``, so through K2 on a card: the encoder's non-causal
 self-attention, the decoder's causal self-attention, and cross-attention, q
 of the decoder's length against keys of the encoder's (q of length 1 at
-decode). ``loss_fn`` waits for a later slice.
+decode).
+
+Training (``loss_fn``) runs the encoder over the frames and the decoder over
+the tokens, each layer checkpointed under ``cfg.remat`` as the reference's
+scan bodies are; every decoder layer projects the cross K/V from the
+encoder's output, so their gradients flow back into the encoder. On a card
+K2's backward takes all three attentions, the cross-attention's keys of the
+encoder's length included.
 """
 
 from __future__ import annotations
@@ -83,17 +90,22 @@ def cross_kv(params, cfg, mem):
 # encoder / decoder trunks
 # ---------------------------------------------------------------------------
 
+def enc_block(cfg, layer, x, positions):
+    B, S, _ = x.shape
+    h = L.rmsnorm(x, layer["ln1"])
+    q, k, v = L._qkv(layer["attn"], cfg, h, positions)
+    o = L.attend(q, k, v, causal=False)
+    x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
+    h = L.rmsnorm(x, layer["ln2"])
+    return x + L.mlp(layer["mlp"], cfg, h)
+
+
 def encode(cfg, params, frames):
     x = frames.to(cfg.dtype())
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     for layer in L.unstack_layers(params["enc"], cfg.encoder_layers):
-        h = L.rmsnorm(x, layer["ln1"])
-        q, k, v = L._qkv(layer["attn"], cfg, h, positions)
-        o = L.attend(q, k, v, causal=False)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
-        h = L.rmsnorm(x, layer["ln2"])
-        x = x + L.mlp(layer["mlp"], cfg, h)
+        x = L.maybe_remat(cfg, enc_block, cfg, layer, x, positions)
     return L.rmsnorm(x, params["ln_enc"])
 
 
@@ -105,6 +117,18 @@ def dec_block(cfg, layer, x, enc_out, positions):
     x = x + cross_attend(layer["cross"], cfg, h, mk, mv)
     h = L.rmsnorm(x, layer["ln3"])
     return x + L.mlp(layer["mlp"], cfg, h)
+
+
+def loss_fn(cfg, params, batch):
+    enc_out = encode(cfg, params, batch["frames"])
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for layer in L.unstack_layers(params["dec"], cfg.n_layers):
+        x = L.maybe_remat(cfg, dec_block, cfg, layer, x, enc_out, positions)
+    x = L.rmsnorm(x, params["ln_f"])
+    logits = L.unembed(params["embed"], x)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

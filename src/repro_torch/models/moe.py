@@ -16,9 +16,17 @@ written by plain index assignment (dropped pairs all go to one spare row
 that is never read), and the reference's ``segment_sum`` over the K choices
 of a token is a sum over a (T, K, d) view, in one order run after run.
 
-Serving is the dense transformer's (``transformer.prefill`` and
-``decode_step``) with this block as the feed-forward of every layer; the KV
-cache is the transformer's. ``loss_fn`` waits for a later slice.
+Training (``loss_fn``) and serving are the dense transformer's
+(``transformer.loss_fn``, ``prefill`` and ``decode_step``) with this block as
+the feed-forward of every layer; the KV cache is the transformer's. Each
+layer is checkpointed under ``cfg.remat`` as the reference's scan body is.
+The capacity comes from the tokens of the call, so a microbatch of a train
+step gets its own. The gradient needs nothing of its own: the scatter writes
+each kept pair once and sends dropped pairs to a spare row that is sliced
+off (a dropped pair gets zero gradient, as the reference's ``where`` gives),
+and the gather's backward, an accumulating index-put, meets a row twice only
+for dropped pairs pointed at row 0, which carry exact zeros. No auxiliary
+load-balancing loss: the reference has none.
 """
 
 from __future__ import annotations
@@ -128,6 +136,10 @@ def block(cfg, layer, x, positions):
     x = x + L.attention_train(layer["attn"], cfg, h, positions)
     h = L.rmsnorm(x, layer["ln2"])
     return x + moe_mlp(layer["moe"], cfg, h)
+
+
+def loss_fn(cfg, params, batch):
+    return T.loss_fn(cfg, params, batch, layer_fn=block)
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,11 @@ def block(cfg, layer, x, positions):
     return x + L.mlp(layer["mlp"], cfg, h)
 
 
-def trunk(cfg, params, x, positions):
+def trunk(cfg, params, x, positions, *, layer_fn=block):
+    """The layers, each ``layer_fn(cfg, layer, x, positions)`` under one
+    ``L.maybe_remat`` (the MoE family passes its own block), then ``ln_f``."""
     for layer in L.unstack_layers(params["layers"], cfg.n_layers):
-        x = L.maybe_remat(cfg, block, cfg, layer, x, positions)
+        x = L.maybe_remat(cfg, layer_fn, cfg, layer, x, positions)
     return L.rmsnorm(x, params["ln_f"])
 
 
@@ -71,9 +73,9 @@ def positions_for(x):
     return torch.arange(S, device=x.device).expand(B, S)
 
 
-def loss_fn(cfg, params, batch):
+def loss_fn(cfg, params, batch, *, layer_fn=block):
     x = embed_tokens(cfg, params, batch)
-    x = trunk(cfg, params, x, positions_for(x))
+    x = trunk(cfg, params, x, positions_for(x), layer_fn=layer_fn)
     if cfg.family == "vlm":          # loss only over the text tail
         x = x[:, cfg.n_image_tokens:]
     logits = L.unembed(params["embed"], x)

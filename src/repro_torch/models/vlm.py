@@ -4,11 +4,11 @@ embeddings ``image_embeds``). Everything else is the dense transformer; the
 VLM specifics (the image embeddings prepended, so that positions and the KV
 cache count them, and the text-only loss tail) live in
 ``transformer.embed_tokens`` and ``loss_fn`` behind ``cfg.family == "vlm"``.
-The family serves; its training (``loss_fn`` here, with image embeddings from
-the data pipeline) waits for a later slice.
+The family serves and trains: the batch of a train step carries
+``image_embeds`` beside its tokens (``models.stub_inputs``).
 """
 
 from repro_torch.models.transformer import (decode_step, init_cache,
-                                            init_params, prefill)
+                                            init_params, loss_fn, prefill)
 
-__all__ = ["init_params", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "loss_fn", "init_cache", "prefill", "decode_step"]

@@ -4,9 +4,14 @@ global-norm clipping (port of ``repro.optim.adamw``).
 ``init`` builds the state tree ``{"m", "v", "count"}``; ``update`` computes
 in float32 and writes the new parameters and moments INTO the given tensors,
 leaf by leaf (the JAX package returns new arrays from donated ones), so a
-step needs no second copy of the model; it returns the same trees. The
-``moment_dtype`` knob exists because a 340B model's float32 m+v alone are
-2.7 TB: nemotron-4-340b stores its moments in bf16. The sharding specs
+step needs no second copy of the model; it returns the same trees. Each
+leaf is updated in slices along its first dimension of at most
+``SLICE_ELEMENTS`` elements (or one index), with the same elementwise
+arithmetic, so that the float32 temporaries of a 1e9-element leaf
+(granite-moe-3b-a800m's stacked experts: ~30 GB of them at once) stay those
+of one slice; a leaf of fewer elements is one slice. The ``moment_dtype``
+knob exists because a 340B model's float32 m+v alone are 2.7 TB:
+nemotron-4-340b stores its moments in bf16. The sharding specs
 (``state_specs``) wait for ``launch/shardings``.
 """
 
@@ -17,6 +22,9 @@ import dataclasses
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map
+
+# the most elements of a leaf updated at once (256 MiB in float32)
+SLICE_ELEMENTS = 2 ** 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +70,11 @@ def update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
     lr = cfg.lr * lr_scale
 
     def upd(g, m, v, p):
+        rows = max(1, SLICE_ELEMENTS // p[0].numel())
+        for pieces in zip(*(t.split(rows) for t in (g, m, v, p))):
+            upd_slice(*pieces)
+
+    def upd_slice(g, m, v, p):
         g = g.float() * clip
         m32 = m.float() * b1 + (1 - b1) * g
         v32 = v.float() * b2 + (1 - b2) * g * g

@@ -548,18 +548,70 @@ def test_flash_attention_kernel_takes_keys_of_their_own_length(no_tf32, dtype, t
 
 
 def test_cross_attention_raises_where_a_gradient_is_wanted(no_tf32):
+    """Keys of their own length: causal attention raises before any launch,
+    forward or backward, also where a gradient is wanted; non-causal
+    attention that wants a gradient launches K2 and its backward once each,
+    whichever input wants it (and only K2 under no_grad)."""
     q, k, v = cross_inputs(0, 1, 16, 24, 2, 2, 32, torch.float32, no_tf32)
+    before = (fa.launches, fa.bwd_launches)
     with pytest.raises(ValueError, match="own length"):
         fa.flash_attention_cuda(q, k, v, causal=True)
-    before = (fa.launches, fa.bwd_launches)
+    with pytest.raises(ValueError, match="own length"):
+        ops.flash_attention(q, k.clone().requires_grad_(), v, causal=True)
+    with pytest.raises(ValueError, match="own length"):
+        fa.flash_attention_bwd_cuda(q, k, v, q, torch.zeros(1, 2, 16, device=no_tf32),
+                                    causal=True)
+    assert (fa.launches, fa.bwd_launches) == before
     for leaf in range(3):
         args = [t.clone().requires_grad_(i == leaf) for i, t in enumerate((q, k, v))]
-        with pytest.raises(NotImplementedError, match="self-attention only"):
-            ops.flash_attention(*args, causal=False)
-    assert (fa.launches, fa.bwd_launches) == before
+        fwd, bwd = fa.launches, fa.bwd_launches
+        out = ops.flash_attention(*args, causal=False)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.bwd_launches) == (fwd + 1, bwd + 1)
+        assert args[leaf].grad.shape == args[leaf].shape
     with torch.no_grad():
+        fwd, bwd = fa.launches, fa.bwd_launches
         ops.flash_attention(*(t.requires_grad_() for t in (q, k, v)), causal=False)
-    assert fa.launches == before[0] + 1
+    assert (fa.launches, fa.bwd_launches) == (fwd + 1, bwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd", [
+    (8, 2048, 512, 16, 16, 64),   # seamless-m4t-medium's training cross-attention
+    (2, 77, 300, 6, 2, 64),       # ragged lengths, GQA
+    (1, 1024, 512, 4, 2, 64),     # the plain version chunks the queries
+    (2, 40, 1, 4, 2, 32),         # one key
+    (8, 1, 512, 16, 16, 64),      # one query
+    (8, 512, 512, 16, 16, 64),    # the encoder's non-causal self-attention
+    (1, 130, 70, 8, 2, 128)])     # hd 128, where dK/dV takes 32 q rows a step
+def test_flash_attention_backward_takes_keys_of_their_own_length(no_tf32, dtype, B, S, Sk, H,
+                                                                 KV, hd):
+    """K2's backward, non-causal, against the plain version's autograd
+    gradient as the self-attention cases above hold it; twice bit for bit."""
+    q, k, v = cross_inputs(S + Sk, B, S, Sk, H, KV, hd, dtype, no_tf32)
+    do = cross_inputs(S, B, S, Sk, H, KV, hd, dtype, no_tf32)[0]
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+    torch.testing.assert_close(lse, plain_lse(q, k, False), atol=1e-5 if dtype ==
+                               torch.float32 else 4e-3, rtol=0)
+    before = fa.bwd_launches
+    got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=False)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    again = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = plain_grads(q, k, v, do, False)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4, msg=name)
+    if dtype == torch.bfloat16:
+        ref = plain_grads(q.float(), k.float(), v.float(), do.float(), False)
+        scale = max(float(r.abs().max()) for r in ref)
+        for g, w, r, name in zip(got, want, ref, ("dq", "dk", "dv")):
+            assert grad_row_err(g, r, scale) <= max(2 * grad_row_err(w, r, scale),
+                                                    BF16_ULP), name
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +628,7 @@ import dataclasses  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import family, moe  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 NEAR_TIE = 1e-5
 
@@ -625,3 +678,54 @@ def test_smoke_families_serve_on_the_card_as_on_the_cpu(no_tf32, monkeypatch, ar
         ranked = probs.sort(-1, descending=True).values
         clear = (ranked[:, cfg.top_k - 1] - ranked[:, cfg.top_k]) >= NEAR_TIE
         assert torch.equal(ge.sort(-1).values[clear], we.sort(-1).values[clear])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-235b-a22b",
+                                  "seamless-m4t-medium", "internvl2-26b"])
+def test_smoke_families_train_on_the_card_as_on_the_cpu(no_tf32, monkeypatch, arch):
+    """Two train steps (2 microbatches, remat, float32) of the smoke config
+    on the card against the CPU from the same parameters and batches (the
+    stub frontend's inputs included): loss, grad_norm and lr, the parameters
+    and both moments at atol/rtol 1e-4; K2's backward launched once an
+    attention layer a microbatch. The CPU router's k-th and (k+1)-th
+    probabilities must lie NEAR_TIE apart or more, so that the card routes
+    every token alike."""
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, adamw
+    cfg = dataclasses.replace(configs.smoke(arch), param_dtype="float32",
+                              compute_dtype="float32", microbatches=2, remat=True)
+    params = family(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=1)
+    gaps = []
+    route = moe.route
+
+    def recording(p, c, xf):
+        top_p, top_e, probs = route(p, c, xf)
+        if xf.device.type == "cpu":
+            ranked = probs.detach().sort(-1, descending=True).values
+            gaps.append(float((ranked[:, c.top_k - 1] - ranked[:, c.top_k]).min()))
+        return top_p, top_e, probs
+    monkeypatch.setattr(moe, "route", recording)
+    opt_cfg = AdamWConfig()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        p = L.tree_map(lambda t: t.to(device, copy=True), params)
+        o = adamw.init(p, opt_cfg)
+        step_fn = train.make_train_step(cfg, opt_cfg, total_steps=300)
+        bwd, metrics = fa.bwd_launches, []
+        for step in (200, 201):
+            p, o, m = step_fn(p, o, train.train_batch(cfg, dcfg, step, device), step)
+            metrics.append({k: float(x) for k, x in m.items()})
+        runs[device] = (p, o, metrics, fa.bwd_launches - bwd)
+    torch.cuda.synchronize()
+    attn = cfg.encoder_layers + 2 * cfg.n_layers if cfg.family == "encdec" else cfg.n_layers
+    assert runs["cpu"][3] == 0 and runs["cuda"][3] == 2 * cfg.microbatches * attn
+    if cfg.family == "moe":
+        assert min(gaps) >= NEAR_TIE
+    for got, want in zip(runs["cuda"][2], runs["cpu"][2]):
+        for k in ("loss", "grad_norm", "lr"):
+            assert got[k] == pytest.approx(want[k], rel=1e-4, abs=1e-4), k
+    for tree in (0, 1):
+        for g, w in zip(tree_leaves(runs["cuda"][tree]), tree_leaves(runs["cpu"][tree])):
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)

@@ -117,10 +117,13 @@ def test_wrapper_takes_keys_of_their_own_length_only_without_a_mask():
     with pytest.raises(ValueError, match="own length"):
         fa.flash_attention_cuda(q, k[:, :0], k[:, :0], causal=False)
     with pytest.raises(ValueError, match="own length"):
-        fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 8), causal=False)
-    # non-causal with 24 keys passes the shape checks and stops at the device
+        fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 8), causal=True)
+    # non-causal with 24 keys passes the shape checks and stops at the device,
+    # forward and backward
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, torch.zeros(1, 2, 8), causal=False)
 
 
 def test_cpu_tensors_run_the_plain_version_without_a_launch():
@@ -172,6 +175,31 @@ def test_plain_gradient_matches_jax_grad(B, S, H, KV, hd, causal):
         assert t.grad.shape == w.shape and t.grad.dtype == torch.float32
         np.testing.assert_allclose(t.grad.numpy(), w, atol=2e-5 * np.abs(w).max(),
                                    rtol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd", [
+    (2, 1, 512, 4, 2, 64),        # decode: one query against the encoder's keys
+    (2, 40, 1, 4, 2, 32),         # one key
+    (1, 1024, 512, 4, 2, 32),     # S > ATTN_CHUNK: chunked over the queries
+])
+def test_plain_cross_attention_gradient_matches_jax_grad(B, S, Sk, H, KV, hd):
+    """Keys of their own length (non-causal, GQA): the plain version's
+    autograd gradient, which K2's backward is held to on a card, against
+    ``jax.grad`` of the reference's ``attend_full`` and ``attend`` (which
+    takes ``attend_chunked`` where S > ATTN_CHUNK), at the tolerance above."""
+    (jq, q), (jk, k), (jv, v) = cross_inputs(S + Sk + 7, B, S, Sk, H, KV, hd)
+    do = np.random.default_rng(S + Sk).normal(size=(B, S, H, hd)).astype(np.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=False)
+    out.backward(torch.from_numpy(do))
+    for attend in (JL.attend_full, JL.attend):
+        want = jax.grad(lambda q_, k_, v_: jnp.sum(attend(q_, k_, v_, causal=False) * do),
+                        argnums=(0, 1, 2))(jq, jk, jv)
+        for t, w, name in zip(leaves, want, ("dq", "dk", "dv")):
+            w = np.asarray(w)
+            assert t.grad.shape == w.shape and t.grad.dtype == torch.float32
+            np.testing.assert_allclose(t.grad.numpy(), w, atol=2e-5 * np.abs(w).max(),
+                                       rtol=2e-5, err_msg=f"{attend.__name__} {name}")
 
 
 def test_backward_wrapper_rejects_what_the_kernel_does_not_take():

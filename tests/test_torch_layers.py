@@ -129,3 +129,32 @@ def test_embed_unembed_and_dense_init():
     w = L.dense_init(g, (400, 300), torch.bfloat16)
     assert w.dtype == torch.bfloat16 and w.device.type == "cpu"
     assert abs(float(w.float().std()) - 400 ** -0.5) < 2e-3
+
+
+def test_maybe_remat_checkpoints_only_where_autograd_records(monkeypatch):
+    """A layer is checkpointed under ``cfg.remat`` when autograd records (a
+    tensor of its arguments, here one inside a dict as a layer's parameters
+    are, requires a gradient, in grad mode), and called as it is without
+    remat, under ``no_grad``, or where nothing requires a gradient
+    (serving), with the same result either way."""
+    calls = []
+    real = L.checkpoint
+
+    def counting(f, *args, **kw):
+        calls.append(f)
+        return real(f, *args, **kw)
+    monkeypatch.setattr(L, "checkpoint", counting)
+
+    def scale(layer, x):
+        return layer["w"] * x
+
+    x = torch.arange(4.0)
+    for remat, grad, wants, checkpointed in ((True, True, True, 1), (True, False, True, 0),
+                                             (True, True, False, 0), (False, True, True, 0)):
+        cfg = dataclasses.replace(configs.smoke("qwen3-1.7b"), remat=remat)
+        layer = {"w": torch.tensor(3.0, requires_grad=wants)}
+        with torch.set_grad_enabled(grad):
+            y = L.maybe_remat(cfg, scale, layer, x)
+        assert torch.equal(y, 3.0 * x) and (y.grad_fn is not None) == (grad and wants)
+        assert len(calls) == checkpointed, (remat, grad, wants)
+        calls.clear()

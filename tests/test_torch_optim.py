@@ -71,6 +71,37 @@ def test_adamw_matches_jax(moment_dtype):
                     assert np.all(np.abs(g - w) <= ulp), step
 
 
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_updates_large_leaves_a_slice_at_a_time_bit_for_bit(monkeypatch, moment_dtype):
+    """Leaves are updated in slices along their first dimension of at most
+    ``SLICE_ELEMENTS`` elements (here lowered to 10), or one index: the same
+    elementwise arithmetic, so parameters and moments equal the update of
+    each leaf in one slice bit for bit, 3-d leaves, slices of several
+    indices, 1-d leaves and bf16 parameters included."""
+    rng = np.random.default_rng(7)
+
+    def tree(scale):
+        return {"experts": torch.from_numpy((rng.normal(size=(3, 4, 5)) * scale)
+                                            .astype(np.float32)),
+                "w": torch.from_numpy(rng.normal(size=(12, 2)).astype(np.float32))
+                .to(torch.bfloat16),
+                "b": torch.from_numpy(rng.normal(size=40).astype(np.float32))}
+    cfg = AdamWConfig(lr=1e-2, moment_dtype=moment_dtype, grad_clip=5.0)
+    params = tree(1.0)
+    grads = [tree(10.0 if step else 1.0) for step in range(3)]
+    runs = []
+    for elements in (adamw.SLICE_ELEMENTS, 10):
+        monkeypatch.setattr(adamw, "SLICE_ELEMENTS", elements)
+        p = {k: t.clone() for k, t in params.items()}
+        state = adamw.init(p, cfg)
+        for g in grads:
+            p, state, _ = adamw.update(g, state, p, cfg, lr_scale=0.5)
+        runs.append((p, state["m"], state["v"]))
+    for got, want in zip(runs[1], runs[0]):
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
 def test_adamw_cases_of_the_reference():
     """``tests/test_optim.py``'s AdamW cases, on the port."""
     cfg = AdamWConfig(lr=0.1, weight_decay=0.0)

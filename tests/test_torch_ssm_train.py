@@ -20,7 +20,8 @@ inter-chunk recurrence carries gradient too:
   holds qwen3 at 1e-4), and the parameters at 2e-4 of their leaf's largest
   magnitude plus what that tolerance of the moments becomes through
   AdamW's m̂ / (√v̂ + eps) at each step, capped at ``SLACK_LR`` = 0.1 of
-  that step's lr (``adamw_slack``), and at most ``SLACK_SHARE`` = 1e-4 of
+  that step's lr (``_torch_train_parity.adamw_slack``), and at most
+  ``SLACK_SHARE`` = 1e-4 of
   the elements may need that term. Without it a few elements of these
   models fail 1e-4: where m̂ nearly cancels or the gradient lies in
   float32's noise, AdamW's division turns a last-bits difference of the
@@ -59,6 +60,7 @@ from repro.launch import train as jax_train  # noqa: E402
 from repro.models import family as jax_family  # noqa: E402
 from repro.optim import AdamWConfig as JaxAdamWConfig  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
+from _torch_train_parity import adamw_slack  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
 from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
@@ -73,7 +75,6 @@ STEPS = (200, 201)
 TOTAL = 300
 TOL = 1e-4
 STEP_TOL = 2e-4
-SLACK_LR = 0.1       # adamw_slack's cap, per step, as a share of its lr
 SLACK_SHARE = 1e-4   # the share of the parameters that may need that slack
 BF16_RATIO = 1.0     # between the sound readings (<= 0.88) and the fault's (>= 1.20)
 
@@ -130,27 +131,6 @@ def run_jax(cfg, params):
     return jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, opt), metrics
 
 
-def adamw_slack(moments, lrs, cfg=JaxAdamWConfig()):
-    """Per parameter leaf, how far two runs' parameters may drift apart when
-    each step's moments differ by STEP_TOL of the leaf's largest magnitude
-    and STEP_TOL relative: the sum over steps of lr times the first-order change of
-    m̂ / (√v̂ + eps) under those differences, at most SLACK_LR times lr."""
-    slack = None
-    for t, ((ms, vs), lr) in enumerate(zip(moments, lrs), start=1):
-        c1, c2 = 1 - cfg.b1 ** t, 1 - cfg.b2 ** t
-        step = []
-        for m, v in zip(jax.tree.leaves(ms), jax.tree.leaves(vs)):
-            m, v = m.astype(np.float64), v.astype(np.float64)
-            dm = STEP_TOL * (np.abs(m).max() + np.abs(m)) / c1
-            dv = STEP_TOL * (np.abs(v).max() + np.abs(v)) / c2
-            mh, root = np.abs(m) / c1, np.sqrt(v / c2)
-            with np.errstate(divide="ignore", invalid="ignore"):
-                dv_term = np.where(mh > 0, mh * dv / (2 * root * (root + cfg.eps) ** 2), 0.0)
-            step.append(lr * np.minimum(dm / (root + cfg.eps) + dv_term, SLACK_LR))
-        slack = step if slack is None else [a + b for a, b in zip(slack, step)]
-    return slack
-
-
 def run_port(cfg, jparams):
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
@@ -176,7 +156,7 @@ def test_train_steps_match_jax(arch, microbatches, remat):
         assert sorted(got) == sorted(want) == ["grad_norm", "loss", "lr"]
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=TOL, err_msg=k)
-    slack = adamw_slack(run_jax.moments, [m["lr"] for m in jm])
+    slack = adamw_slack(run_jax.moments, [m["lr"] for m in jm], tol=STEP_TOL)
     assert jax.tree.structure(tp) == jax.tree.structure(jp)
     slacked = total = 0
     for g, w, extra in zip(jax.tree.leaves(tp), jax.tree.leaves(jp), slack):

@@ -42,6 +42,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.data import DataConfig, host_batch  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -188,12 +189,26 @@ def test_train_cli_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "seamless-m4t-medium",
                                   "internvl2-26b"])
-def test_families_that_only_serve_raise_for_a_train_step(arch):
-    """moe, encdec and vlm have no loss_fn in the port yet (and encdec's
-    cross-attention no backward kernel): the train step and the CLI raise
-    NotImplementedError before anything is built."""
+def test_families_that_only_serve_raise_for_a_train_step(arch, capsys):
+    """moe, encdec and vlm once only served, and their train step raised;
+    they train now: one train step of the smoke config on the CPU, with the
+    stub frontend's inputs from ``train_batch``, and two steps of the CLI,
+    each finite, the parameters left on the CPU
+    (``tests/test_torch_moe_train.py`` and ``tests/test_torch_encdec_train.py``
+    hold them against JAX)."""
     cfg = configs.smoke(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.make_train_step(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["--smoke", "--arch", arch, "--device", "cpu", "--steps", "1"])
+    opt_cfg = AdamWConfig()
+    params = family(cfg).init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    opt = adamw.init(params, opt_cfg)
+    batch = train.train_batch(cfg, DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2),
+                              0, "cpu")
+    params, opt, m = train.make_train_step(cfg, opt_cfg)(params, opt, batch, 0)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert int(opt["count"]) == 1 and all(torch.isfinite(t).all() for t in tree_leaves(params))
+    params, opt, metrics = train.main(["--smoke", "--arch", arch, "--device", "cpu",
+                                       "--steps", "2", "--seq", "32", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert "step     1 loss" in out and out.strip().endswith("done")
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    assert int(opt["count"]) == 2
+    assert all(t.device.type == "cpu" and torch.isfinite(t).all() for t in tree_leaves(params))
