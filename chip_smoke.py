@@ -4,7 +4,8 @@ Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
 drives the weighted-quorum data plane, zamba2-1.2b, qwen3-1.7b,
 granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b,
 zamba2-1.2b, granite-moe-3b-a800m and seamless-m4t-medium training at full
-size, and times them.
+size, then qwen3-1.7b training and zamba2-1.2b serving sharded on a 1x1
+("data", "model") mesh over NCCL, and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
@@ -92,6 +93,18 @@ Phases, each of which raises on failure so that the script exits non-zero:
      backward 72: 12 encoder, 12 causal, 12 cross a microbatch), as the
      other training paths, with the model FLOP counted over
      the active experts and, for the encoder, over the frames;
+     then, sharded on a 1x1 ("data", "model") mesh over NCCL (world size
+     1, a free localhost port, the group destroyed after each phase), through
+     the same entry points with ``rules=make_rules(mesh)`` and parameters
+     and batches laid out by ``launch.train.distribute_tree``: qwen3-1.7b
+     trained 3 steps (one warm-up, 2 timed), its losses and parameters at
+     1e-4 of an unsharded run of the same steps (the losses also of the
+     unsharded training path's), K2 112 and its backward 56 a step on local
+     shards; and zamba2-1.2b served (8 x 2048 prompts, 8 greedy decode
+     steps), every step's logits at 1e-4 of the same unsharded and the
+     greedy tokens equal, K3 38 and K2 6 a prefill, none a decode step;
+     each beside the unsharded path's step time, TTFT, decode ms, peak
+     memory and idle share, and whether it is bit-equal;
  10. kernel times beside the plain version's, the bound and the library's,
      as one JSON line {"kernels": [...]}: the kernel's device time
      (torch.profiler), the time per call through the wrapper and of the plain
@@ -104,6 +117,7 @@ Phases, each of which raises on failure so that the script exits non-zero:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import gc
 import json
@@ -113,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import socket
 import threading
 import time
 from pathlib import Path
@@ -121,6 +136,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -135,6 +151,8 @@ from repro_torch.kernels import quorum_commit as qc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
+from repro_torch.launch.shardings import make_rules  # noqa: E402
 from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -209,6 +227,11 @@ HYBRID_TRAIN_PEAK_GIB = 40.0
 # 79.2 GiB with 69.0 GiB in use
 ENCDEC_TRAIN_CUT = {"microbatches": 2}
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet).
+# the sharded paths (a 1x1 ("data", "model") mesh over NCCL, world size 1)
+SHARDED_TRAIN_STEPS = 3             # one warm-up step, then 2 timed
+SHARDED_DECODE = 8
+SHARDED_TOL = 1e-4                  # sharded against unsharded, atol and rtol
+
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
@@ -1809,6 +1832,238 @@ def training_path(arch, name, seed, n_steps=TRAIN_STEPS, cut=None) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# sharded training and serving on a 1x1 mesh (NCCL, world size 1)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A 1x1 ("data", "model") DeviceMesh over NCCL, world size 1, on a free
+    localhost port; the process group is destroyed on the way out."""
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh_for(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def tree_distance(got, want) -> dict:
+    """Held at SHARDED_TOL leaf by leaf (``got``'s DTensors by their local
+    shards, which on one rank are whole); the largest distance, and whether
+    every leaf is equal bit for bit."""
+    got = [t.to_local() if isinstance(t, DTensor) else t for t in tree_leaves(got)]
+    want = tree_leaves(want)
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=SHARDED_TOL, rtol=SHARDED_TOL)
+    return {"max_abs_err": err, "bit_equal": all(torch.equal(g, w) for g, w in zip(got, want))}
+
+
+def sharded_training_path(arch, name, seed, unsharded) -> dict:
+    """``arch`` at full width and depth trained SHARDED_TRAIN_STEPS steps
+    (one warm-up, then timed) on a 1x1 mesh through
+    ``make_train_step(..., rules=make_rules(mesh))``, parameters and
+    batches laid out by ``launch.train.distribute_tree``: the losses equal
+    the unsharded ``training_path``'s (``unsharded``, the same seed and
+    batches) and the parameters an unsharded run's of the same steps, at
+    SHARDED_TOL; every step launches K2 and its backward on local shards as
+    many times as unsharded. Step time, peak memory, idle share and launches
+    beside the unsharded path's."""
+    cfg = configs.get(arch)
+    fam = family(cfg)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
+    batches = [train.train_batch(cfg, dcfg, step, "cuda")
+               for step in range(SHARDED_TRAIN_STEPS + 1)]
+    draw = lambda: fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed),
+                                   device="cuda")
+    want = draw()
+    opt_state = adamw.init(want, opt_cfg)
+    step_fn = train.make_train_step(cfg, opt_cfg, total_steps=TRAIN_TOTAL_STEPS)
+    want_losses = []
+    for step in range(SHARDED_TRAIN_STEPS):
+        want, opt_state, m = step_fn(want, opt_state, batches[step], step)
+        want_losses.append(float(m["loss"]))
+    del opt_state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    per_step = expected_train_launches(cfg)
+    with one_rank_mesh() as mesh:
+        rules = make_rules(mesh)
+        t0 = time.perf_counter()
+        params = train.distribute_tree(draw(), mesh, fam.param_specs(cfg, rules), rules)
+        opt_state = adamw.init(params, opt_cfg)
+        step_fn = train.make_train_step(cfg, opt_cfg, rules=rules,
+                                        total_steps=TRAIN_TOTAL_STEPS)
+        on_mesh = [train.distribute_tree(b, mesh, train.batch_spec_tree(b), rules)
+                   for b in batches]
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        steps = []
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(SHARDED_TRAIN_STEPS):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, on_mesh[step], step)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            launched = {k: v - before[k] for k, v in launch_counts().items()}
+            steps.append({"step": step, "loss": float(m["loss"]),
+                          "grad_norm": float(m["grad_norm"]), "step_s": took,
+                          "launches": launched})
+            print(f"{cfg.name} sharded train step {step}: loss {steps[-1]['loss']:.4f} "
+                  f"{took:.3f} s; launches {launched}")
+            if launched != per_step:
+                raise AssertionError(f"{cfg.name} sharded train step {step} launched "
+                                     f"{launched}, expected {per_step}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = launch_counts()
+        losses = [s["loss"] for s in steps]
+        for got, ref, what in ((losses, want_losses, "an unsharded run of the same steps"),
+                               (losses, [s["loss"] for s in unsharded["steps"][:len(losses)]],
+                                "the unsharded training_path")):
+            torch.testing.assert_close(torch.tensor(got), torch.tensor(ref), atol=SHARDED_TOL,
+                                       rtol=SHARDED_TOL, msg=lambda m: f"losses against {what}: {m}")
+        params_match = tree_distance(params, want)
+        del want
+        gc.collect()
+        profile = profile_device(
+            lambda: step_fn(params, opt_state, on_mesh[SHARDED_TRAIN_STEPS], SHARDED_TRAIN_STEPS),
+            watch=("flash_attention_bf16_kernel", "attn_bwd_dkdv_bf16_kernel",
+                   "attn_bwd_dq_bf16_kernel", "nccl"))
+        placements = sorted({str(t.placements) for t in tree_leaves(params)})
+    timed = [s["step_s"] for s in steps[1:]]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {
+        "arch": cfg.name, "mesh": [1, 1], "backend": "nccl", "world_size": 1,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "microbatches": cfg.microbatches,
+        "remat": cfg.remat, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "setup_s": setup_s,
+        "steps": steps, "step_s_median_timed": float(np.median(timed)),
+        "tokens_per_s": tokens / float(np.median(timed)),
+        "peak_mem_gib": peak, "launches": launches, "launches_per_step": per_step,
+        "losses": losses, "unsharded_losses": want_losses, "params": params_match,
+        "param_placements": placements, "profile": profile,
+        "unsharded": {"step_s_median_after_first": unsharded["step_s_median_after_first"],
+                      "peak_mem_gib": unsharded["peak_mem_gib"],
+                      "device_idle_share": unsharded["profile"]["device_idle_share"],
+                      "device_launches": unsharded["profile"]["device_launches"],
+                      "launches_per_step": unsharded["launches_per_step"]},
+    }
+    print(f"sharded training {cfg.name} (1x1 mesh, NCCL): "
+          f"{summary['step_s_median_timed']:.3f} s/step against "
+          f"{unsharded['step_s_median_after_first']:.3f} unsharded; peak {peak:.2f} GiB "
+          f"against {unsharded['peak_mem_gib']:.2f}; idle {profile['device_idle_share']:.3f} "
+          f"against {unsharded['profile']['device_idle_share']:.3f}; parameters "
+          f"{'bit-equal' if params_match['bit_equal'] else 'within 1e-4'} "
+          f"(max {params_match['max_abs_err']:.3g})")
+    print(json.dumps({name: summary}))
+    return summary
+
+
+def sharded_serving_path(arch, name, seed, unsharded) -> dict:
+    """``arch`` at full width and depth served on a 1x1 mesh through the
+    serving entry points with ``rules``: SERVE_BATCH x SERVE_PROMPT-token
+    prompts, then SHARDED_DECODE greedy decode steps, against the same
+    unsharded (the same parameters and prompts): every step's logits at
+    SHARDED_TOL and the greedy tokens equal. The prefill launches K3 and K2
+    on local shards as many times as unsharded, a decode step neither. TTFT
+    and decode ms a step beside the unsharded ``serving_path``'s."""
+    cfg = configs.get(arch)
+    fam = family(cfg)
+    prefix = serve.prefix_len(cfg)
+    cache_len = prefix + SERVE_PROMPT + SHARDED_DECODE
+    params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    batch = serve.make_batch(cfg, torch.Generator("cuda").manual_seed(seed),
+                             SERVE_BATCH, SERVE_PROMPT)
+    want_prefill, want_step = expected_serve_launches(cfg)
+
+    def run(params, batch, rules):
+        prefill = serve.make_prefill_step(cfg, cache_len=cache_len, rules=rules)
+        decode = serve.make_decode_step(cfg, rules=rules)
+        whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+        with torch.no_grad():
+            prefill(params, batch)               # warm-up: cuBLAS plans, allocator
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            ttft = time.perf_counter() - t0
+            launched = launch_counts()
+            seen, tokens, step_s = [whole(logits)], [], []
+            for i in range(SHARDED_DECODE):
+                tok = torch.argmax(seen[-1][:, -1], -1)[:, None]
+                tokens.append(tok)
+                pos = torch.full((SERVE_BATCH,), prefix + SERVE_PROMPT + i,
+                                 dtype=torch.int64, device="cuda")
+                t0 = time.perf_counter()
+                logits, cache = decode(params, cache, tok, pos)
+                logits = whole(logits)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                seen.append(logits)
+            decoded = {k: v - launched[k] for k, v in launch_counts().items()}
+            profile = profile_device(lambda: prefill(params, batch),
+                                     watch=("ssd_intra_chunk_kernel",
+                                            "flash_attention_bf16_kernel", "nccl"))
+        return {"ttft_s": ttft, "step_s": step_s, "logits": seen,
+                "tokens": torch.cat(tokens, 1), "prefill_launches": launched,
+                "decode_launches": decoded, "profile": profile}
+
+    ref = run(params, batch, None)
+    with one_rank_mesh() as mesh:
+        rules = make_rules(mesh)
+        sp = train.distribute_tree(params, mesh, fam.param_specs(cfg, rules), rules)
+        sb = train.distribute_tree(batch, mesh, train.batch_spec_tree(batch), rules)
+        torch.cuda.reset_peak_memory_stats()
+        got = run(sp, sb, rules)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    none = dict.fromkeys(want_step, 0)
+    for what, launched, expected in (("prefill", got["prefill_launches"], want_prefill),
+                                     ("decode", got["decode_launches"], none)):
+        if launched != expected:
+            raise AssertionError(f"sharded {what} launched {launched}, expected {expected}")
+    errs = []
+    for i, (g, w) in enumerate(zip(got["logits"], ref["logits"])):
+        torch.testing.assert_close(g, w, atol=SHARDED_TOL, rtol=SHARDED_TOL,
+                                   msg=lambda m: f"sharded logits, step {i}: {m}")
+        errs.append(max_err(g, w))
+    if not torch.equal(got["tokens"], ref["tokens"]):
+        raise AssertionError("sharded greedy tokens differ from the unsharded ones")
+    bit_equal = all(torch.equal(g, w) for g, w in zip(got["logits"], ref["logits"]))
+    summary = {
+        "arch": cfg.name, "mesh": [1, 1], "backend": "nccl", "world_size": 1,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": SHARDED_DECODE,
+        "cache_len": cache_len, "ttft_s": got["ttft_s"],
+        "decode_ms_per_step": 1e3 * float(np.mean(got["step_s"])),
+        "decode_median_ms": 1e3 * float(np.median(got["step_s"])),
+        "peak_mem_gib": peak, "launches": got["prefill_launches"],
+        "decode_launches": got["decode_launches"], "logits_max_abs_err": max(errs),
+        "logits_bit_equal": bit_equal, "tokens_equal": True, "profile": got["profile"],
+        "unsharded_in_phase": {"ttft_s": ref["ttft_s"],
+                               "decode_ms_per_step": 1e3 * float(np.mean(ref["step_s"])),
+                               "profile": ref["profile"]},
+        "unsharded": {"ttft_s": unsharded["ttft_s"],
+                      "decode_ms_per_step": unsharded["decode_ms_per_step"],
+                      "device_idle_share": unsharded["profile"]["device_idle_share"]},
+    }
+    print(f"sharded serving {cfg.name} (1x1 mesh, NCCL): TTFT {got['ttft_s']:.3f} s "
+          f"against {unsharded['ttft_s']:.3f} unsharded; decode "
+          f"{summary['decode_ms_per_step']:.2f} ms/step against "
+          f"{unsharded['decode_ms_per_step']:.2f}; logits "
+          f"{'bit-equal' if bit_equal else 'within 1e-4'} (max {max(errs):.3g})")
+    print(json.dumps({name: summary}))
+    return summary
+
+
 def time_k2(gen) -> dict:
     """K2 at the serving prefill's shape: kernel, plain and SDPA times."""
     B, S, H, KV, hd = SERVE_BATCH, SERVE_PROMPT, 32, 32, 64
@@ -2094,6 +2349,13 @@ def main() -> int:
     encdec_training = training_path(ENCDEC_ARCH, "encdec_training_path", args.seed,
                                     args.train_steps, cut=ENCDEC_TRAIN_CUT)
     torch.cuda.empty_cache()
+    # sharded training and serving on a 1x1 mesh, after every unsharded path
+    sharded_training = sharded_training_path(DENSE_ARCH, "sharded_training_path", args.seed,
+                                             training)
+    torch.cuda.empty_cache()
+    sharded_serving = sharded_serving_path(SERVE_ARCH, "sharded_serving_path", args.seed,
+                                           serving)
+    torch.cuda.empty_cache()
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
@@ -2122,17 +2384,23 @@ def main() -> int:
         f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention"],
         f"granite_train_{args.train_steps}_steps": moe_training["launches"]["flash_attention"],
         f"seamless_train_{args.train_steps}_steps":
-            encdec_training["launches"]["flash_attention"]}
+            encdec_training["launches"]["flash_attention"],
+        "zamba2_sharded_prefill": sharded_serving["launches"]["flash_attention"],
+        f"qwen3_sharded_train_{SHARDED_TRAIN_STEPS}_steps":
+            sharded_training["launches"]["flash_attention"]}
     k2b["launches_per_train_step"] = training["launches_per_step"]["flash_attention_bwd"]
     k2b["launches_by_path"] = {
         f"qwen3_train_{args.train_steps}_steps": training["launches"]["flash_attention_bwd"],
         f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["flash_attention_bwd"],
         f"granite_train_{args.train_steps}_steps": moe_training["launches"]["flash_attention_bwd"],
         f"seamless_train_{args.train_steps}_steps":
-            encdec_training["launches"]["flash_attention_bwd"]}
+            encdec_training["launches"]["flash_attention_bwd"],
+        f"qwen3_sharded_train_{SHARDED_TRAIN_STEPS}_steps":
+            sharded_training["launches"]["flash_attention_bwd"]}
     k3["launches_by_path"] = {
         "zamba2_prefill": serving["launches"]["ssd_scan"],
-        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["ssd_scan"]}
+        f"zamba2_train_{args.train_steps}_steps": hybrid_training["launches"]["ssd_scan"],
+        "zamba2_sharded_prefill": sharded_serving["launches"]["ssd_scan"]}
     k3b["launches_per_train_step"] = hybrid_training["launches_per_step"]["ssd_scan_bwd"]
     for k, replaces, launches in (
             (k2, "src/repro/kernels/flash_attention.py:91",

@@ -164,7 +164,10 @@ def quorum_allreduce(grads, mask, group=None):
     each rank contributes its gradient scaled by its commit bit
     ``mask[rank]``; the sum renormalizes by the committed count, at least 1.
     mask: (n_workers,) float. Every rank calls it with the same tree; as in
-    the JAX package, a gradient below float32 comes back in float32."""
+    the JAX package, a gradient below float32 comes back in float32. On a
+    ``DeviceMesh`` the workers are the dp dimension's ranks: pass
+    ``group=mesh.get_group("data")`` and each rank's local gradients (the
+    JAX package's masked ``psum`` over the ``"data"`` axis)."""
     m = torch.as_tensor(mask, dtype=torch.float32)[dist.get_rank(group)]
     m = m.to(tree_leaves(grads)[0].device)
     count = m.clone()

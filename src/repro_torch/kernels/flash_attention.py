@@ -47,6 +47,7 @@ import ctypes
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _build
 
@@ -101,6 +102,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 def flash_attention(q, k, v, *, causal: bool = True):
     """K2 on the inputs' device: the kernel for CUDA (differentiable through
     the backward kernel), the plain version for the CPU."""
+    no_dtensor("flash_attention", q, k, v)
     if q.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
             return FlashAttention.apply(q, k, v, causal)
@@ -130,12 +132,20 @@ def _bwd_launcher():
     return fn
 
 
+def no_dtensor(name: str, *tensors) -> None:
+    """Raise for a DTensor: the kernels and their plain versions take each
+    rank's local shards (``local_map``), never a DTensor."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; call it on local shards (local_map)")
+
+
 def _check(name: str, q, k, v, do=None, *, causal=True):
     """Raise unless q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for the
     backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
     of one dtype on one device that the kernels take. ``Sk`` may differ from
     ``S`` (and be at least 1) only for non-causal attention, forward or
     backward. Returns (B, S, Sk, H, KV, hd)."""
+    no_dtensor(name, q, k, v, *(() if do is None else (do,)))
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

@@ -49,6 +49,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import no_dtensor
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
 HEADS_PER_BLOCK = 32     # heads that share one C Bᵀ in the kernel
@@ -156,6 +157,7 @@ class SSDIntraChunk(torch.autograd.Function):
 def ssd_intra_chunk(x, dt, seg, Bm, Cm):
     """K3 on the inputs' device: the kernel for CUDA (differentiable through
     the backward kernel), the plain version for the CPU."""
+    no_dtensor("ssd_intra_chunk", x, dt, seg, Bm, Cm)
     if x.device.type == "cuda":
         if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, seg, Bm, Cm)):
             return SSDIntraChunk.apply(x, dt, seg, Bm, Cm)
@@ -183,6 +185,7 @@ def _check(name, x, dt, seg, Bm, Cm, grads=()):
     Bm and Cm ``(B,nc,Q,N)``, dy ``(B,nc,Q,nh,hp)``, dstate
     ``(B,nc,nh,hp,N)`` and ddecay ``(B,nc,nh)`` in float32, with Q, hp and N
     from 1 to ``MAX_DIM``. Returns (B, nc, Q, nh, hp, N)."""
+    no_dtensor(name, x, dt, seg, Bm, Cm, *grads)
     if x.ndim != 5:
         raise ValueError(f"{name}: x must be (B,nc,Q,nh,hp); got {tuple(x.shape)}")
     B, nc, Q, nh, hp = x.shape

@@ -2,7 +2,10 @@
 (port of ``repro.launch.serve``).
 
 The decode step updates the cache in place (the JAX package donates it).
-Sharded serving (``launch/shardings``) waits for a later slice.
+With ``rules`` (``launch.shardings``), parameters and requests laid out on
+a mesh (``launch.train.distribute_tree``), prefill and decode run sharded:
+the KV caches in the flash-decoding layout, sequence split over the tp
+axis (``cache_specs`` of each family).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 """
@@ -18,20 +21,25 @@ from repro_torch import configs, default_device
 from repro_torch.models import family, stub_inputs
 
 
-def make_prefill_step(cfg, cache_len=None):
+def make_prefill_step(cfg, cache_len=None, *, rules=None):
     fam = family(cfg)
 
     def prefill_step(params, batch):
-        return fam.prefill(cfg, params, batch, cache_len=cache_len)
+        return fam.prefill(cfg, params, batch, rules, cache_len=cache_len)
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, *, rules=None):
     fam = family(cfg)
 
     def decode_step(params, cache, token, pos):
-        return fam.decode_step(cfg, params, cache, token, pos)
+        return fam.decode_step(cfg, params, cache, token, pos, rules)
     return decode_step
+
+
+def abstract_cache(cfg, B, S):
+    """The decode cache's shapes and dtypes, as ``meta`` tensors."""
+    return family(cfg).init_cache(cfg, B, S, device="meta")
 
 
 def prefix_len(cfg) -> int:

@@ -1,5 +1,4 @@
-"""Training step builder + CLI driver (port of ``repro.launch.train``, on
-one device: the sharding rules wait for ``launch/shardings``).
+"""Training step builder + CLI driver (port of ``repro.launch.train``).
 
 ``make_train_step`` returns a (params, opt_state, batch, step) ->
 (params, opt_state, metrics) function with:
@@ -13,6 +12,16 @@ one device: the sharding rules wait for ``launch/shardings``).
 
 It updates the parameters and moments in place (the JAX package donates
 them) and returns the same trees.
+
+Sharded training: ``rules`` (``launch.shardings.make_rules`` of a torch
+``DeviceMesh``) with parameters, optimizer state and batch laid out on the
+mesh by :func:`distribute_tree` (placements from :func:`tree_shardings`,
+the batch's from :func:`batch_spec_tree`). Each microbatch is the rows that
+the unsharded step gives it, split over dp; each fresh gradient is
+redistributed to its parameter's placements before the add (a partial sum
+becomes a reduce-scatter where the parameter is sharded), and the
+accumulator has the parameters' placements. :func:`abstract_params` and
+:func:`abstract_opt_state` give the trees' shapes on the ``meta`` device.
 
 Every family trains. A batch holds ``tokens``, ``targets`` and ``mask``
 (B, S) and, for encdec and vlm, the stub frontend's ``frames`` or
@@ -33,11 +42,64 @@ import time
 import numpy as np
 import torch
 
+from torch.distributed.tensor import distribute_tensor
+
 from repro_torch import configs, default_device
 from repro_torch.data import DataConfig, host_batch
-from repro_torch.models import family, stub_inputs
+from repro_torch.launch.shardings import P, placements, resolve_spec
+from repro_torch.models import family, layers as L, stub_inputs
 from repro_torch.optim import AdamWConfig, adamw, schedule
 from repro_torch.tree import tree_leaves, tree_map
+
+
+def _meta(build):
+    """The tree ``build()`` makes, as ``meta`` tensors of its shapes and
+    dtypes (nothing is allocated or drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = build()
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), tree)
+
+
+def abstract_params(cfg):
+    fam = family(cfg)
+    return _meta(lambda: fam.init_params(cfg, torch.Generator(), device="cpu"))
+
+
+def abstract_opt_state(cfg, opt_cfg: AdamWConfig):
+    fam = family(cfg)
+    return _meta(lambda: adamw.init(
+        fam.init_params(cfg, torch.Generator(), device="cpu"), opt_cfg))
+
+
+def tree_shardings(mesh, abstract, specs, rules):
+    """DTensor placements per leaf, with role resolution + divisibility
+    sanitizing."""
+    return tree_map(lambda a, s: placements(mesh, resolve_spec(a.shape, s, rules)),
+                    abstract, specs)
+
+
+def batch_spec_tree(batch_abstract):
+    return tree_map(lambda a: P("DP", *([None] * (a.ndim - 1))), batch_abstract)
+
+
+def distribute_tree(tree, mesh, specs, rules):
+    """``tree`` (the same full tensors on every rank) on ``mesh``: each rank
+    keeps its shard of every leaf, laid out by ``specs``, with no
+    communication; so parameters drawn from one generator on every rank
+    equal the unsharded ones."""
+    return tree_map(lambda t, pl: distribute_tensor(t, mesh, pl, src_data_rank=None),
+                    tree, tree_shardings(mesh, tree, specs, rules))
+
+
+def shardings_for_train(cfg, mesh, opt_cfg, rules):
+    fam = family(cfg)
+    ap = abstract_params(cfg)
+    ao = abstract_opt_state(cfg, opt_cfg)
+    pspecs = fam.param_specs(cfg, rules)
+    p_sh = tree_shardings(mesh, ap, pspecs, rules)
+    o_sh = tree_shardings(mesh, ao, adamw.state_specs(pspecs), rules)
+    return ap, ao, p_sh, o_sh
 
 
 def value_and_grad(loss_for, params, batch):
@@ -58,25 +120,39 @@ def _fill(tree, it):
     return next(it)
 
 
-def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
-                    quorum=None):
-    """The train step of ``cfg``."""
+def make_train_step(cfg, opt_cfg: AdamWConfig, *, rules=None,
+                    total_steps: int = 10_000, quorum=None):
+    """The train step of ``cfg``; sharded under ``rules`` (see the module
+    docstring)."""
     fam = family(cfg)
 
     def loss_for(p, mb):
-        return fam.loss_fn(cfg, p, mb)
+        return fam.loss_fn(cfg, p, mb, rules)
+
+    # gradients and the float32 accumulator carry the parameter sharding:
+    # constrained BEFORE the add, a fresh microbatch gradient is
+    # reduce-scattered instead of all-reduced and sliced
+    specs = fam.param_specs(cfg, rules) if rules is not None else None
+
+    def grad_shard(tree):
+        if rules is None:
+            return tree
+        return tree_map(lambda g, s: L.shard(g, s, rules), tree, specs)
 
     def train_step(params, opt_state, batch, step):
         M = cfg.microbatches
         if M > 1:
             acc_dt = getattr(torch, cfg.grad_accum_dtype)
             loss = 0.0
-            grads = tree_map(lambda t: torch.zeros(t.shape, dtype=acc_dt,
-                                                   device=t.device), params)
+            grads = tree_map(lambda t: torch.zeros_like(t, dtype=acc_dt), params)
+            # each microbatch is the rows the unsharded step gives it, split over dp
+            batch = {k: L.shard(x, P(None), rules) for k, x in batch.items()}
             b = next(iter(batch.values())).shape[0] // M
             for i in range(M):
-                mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
+                mb = {k: L.shard(x[i * b:(i + 1) * b], P("DP"), rules)
+                      for k, x in batch.items()}
                 mloss, mgrads = value_and_grad(loss_for, params, mb)
+                mgrads = grad_shard(mgrads)
                 tree_map(lambda a, g: a.copy_(a.float() + g.float()), grads, mgrads)
                 del mgrads
                 loss = loss + mloss
@@ -84,6 +160,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, total_steps: int = 10_000,
             tree_map(lambda g: g.div_(M), grads)
         else:
             loss, grads = value_and_grad(loss_for, params, batch)
+            grads = grad_shard(grads)
+        loss = adamw.local(loss)
 
         if quorum is not None:    # WOC weighted-quorum DP commit (coord/)
             grads, quorum_metrics = quorum(grads)

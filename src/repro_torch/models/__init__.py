@@ -1,12 +1,15 @@
 """Model families (port of ``repro.models``). Each module exposes the same
-functional interface for serving:
+functional interface:
 
-  init_params(cfg, generator, *, device)
-  init_cache(cfg, B, S, *, device)
-  prefill(cfg, params, batch, cache_len)
-  decode_step(cfg, params, cache, token, pos)
+  init_params(cfg, generator, *, device) / param_specs(cfg, rules)
+  loss_fn(cfg, params, batch, rules)
+  init_cache(cfg, B, S, *, device) / cache_specs(cfg, rules)
+  prefill(cfg, params, batch, rules, cache_len)
+  decode_step(cfg, params, cache, token, pos, rules)
 
-and, for training, ``loss_fn(cfg, params, batch)``. Every family of the JAX
+``rules`` (``launch.shardings``) defaults to None, the single-device code;
+with it and DTensor inputs laid out by the specs, the same code runs
+sharded. Every family of the JAX
 package is here, and every one serves and trains. The encdec and vlm
 families' frontends are stubs: their batches carry the frontend's output
 beside the tokens (:func:`stub_inputs`).

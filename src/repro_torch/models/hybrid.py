@@ -11,15 +11,21 @@ invocation slot ((n_shared, B, S, KV, hd)). The JAX package's ``lax.scan``
 is a loop over the stacked layers and its ``lax.cond`` a Python ``if``.
 ``loss_fn`` checkpoints each layer, the Mamba block and the shared block
 after it together (``cfg.remat``), as the JAX package's ``jax.checkpoint``
-of the scan body does. The sharding specs wait for ``launch/shardings``.
+of the scan body does.
+
+Sharded (``rules``), the Mamba layers are ``mamba2``'s (K3 on local shards)
+and the shared block is the transformer's attention (K2 on local shards);
+the shared KV cache is sequence-split over tp, as the transformer's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.shardings import P
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import transformer as T
 
 
 def n_shared(cfg) -> int:
@@ -51,36 +57,48 @@ def init_params(cfg, generator: torch.Generator, *, device=None):
     }
 
 
+def param_specs(cfg, rules):
+    return {
+        "embed": L.specs_embed(cfg, rules),
+        "layers": L.stacked(M.layer_specs(cfg, rules)),
+        "shared": {"attn": L.specs_attention(cfg, rules),
+                   "mlp": L.specs_mlp(cfg, rules),
+                   "wcat": P(rules.fsdp_for(2 * cfg.d_model),
+                             rules.tp_for(cfg.d_model)),
+                   "ln1": P(None), "ln2": P(None)},
+        "ln_f": P(None),
+    }
+
+
 # ---------------------------------------------------------------------------
 # shared block
 # ---------------------------------------------------------------------------
 
-def shared_block(cfg, sp, x, x0, positions):
+def shared_block(cfg, sp, x, x0, positions, rules=None):
     """concat(h, emb0) -> proj -> attention -> mlp -> residual into x."""
     h = L.rmsnorm(torch.cat([x, x0], dim=-1), sp["ln1"])
-    h = h @ sp["wcat"]
-    a = L.attention_train(sp["attn"], cfg, h, positions)
+    h = L.shard(h @ sp["wcat"], P("DP", None, None), rules)
+    a = L.attention_train(sp["attn"], cfg, h, positions, rules)
     h2 = L.rmsnorm(a, sp["ln2"])
-    return x + a + L.mlp(sp["mlp"], cfg, h2)
+    return L.shard(x + a + L.mlp(sp["mlp"], cfg, h2, rules), P("DP", None, None), rules)
 
 
-def _layer(cfg, sp, layer, x, x0, positions, shared: bool):
+def _layer(cfg, sp, layer, x, x0, positions, shared: bool, rules=None):
     """Mamba layer, then the shared block where this layer has one."""
-    x = M.block(cfg, layer, x)
-    return shared_block(cfg, sp, x, x0, positions) if shared else x
+    x = M.block(cfg, layer, x, rules)
+    return shared_block(cfg, sp, x, x0, positions, rules) if shared else x
 
 
-def loss_fn(cfg, params, batch):
-    x0 = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
-    B, S, _ = x0.shape
-    positions = torch.arange(S, device=x0.device).expand(B, S)
+def loss_fn(cfg, params, batch, rules=None):
+    x0 = L.token_embeddings(cfg, params, batch["tokens"], rules)
+    positions = T.positions_for(x0)
     x = x0
     for i, layer in enumerate(L.unstack_layers(params["layers"], cfg.n_layers)):
         x = L.maybe_remat(cfg, _layer, cfg, params["shared"], layer, x, x0, positions,
-                          _is_shared(cfg, i))
+                          _is_shared(cfg, i), rules)
     x = L.rmsnorm(x, params["ln_f"])
-    logits = L.unembed(params["embed"], x)
-    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
+    logits = L.unembed(params["embed"], x, rules)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -96,53 +114,58 @@ def init_cache(cfg, B, S, dtype=None, *, device=None):
     return mc
 
 
-def _shared_prefill(cfg, sp, x, x0, positions):
+def cache_specs(cfg, rules=None):
+    sp = M.cache_specs(cfg, rules)
+    sp["shared_k"] = T.KV_CACHE_SPEC
+    sp["shared_v"] = T.KV_CACHE_SPEC
+    return sp
+
+
+def _shared_prefill(cfg, sp, x, x0, positions, rules=None):
     h = L.rmsnorm(torch.cat([x, x0], dim=-1), sp["ln1"])
-    h = h @ sp["wcat"]
+    h = L.shard(h @ sp["wcat"], P("DP", None, None), rules)
     B, S, _ = h.shape
-    q, k, v = L._qkv(sp["attn"], cfg, h, positions)
-    o = L.attend(q, k, v, causal=True)
+    q, k, v = L._qkv(sp["attn"], cfg, h, positions, rules)
+    o = L.attend(q, k, v, causal=True, rules=rules)
     a = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ sp["attn"]["wo"]
     h2 = L.rmsnorm(a, sp["ln2"])
-    x = x + a + L.mlp(sp["mlp"], cfg, h2)
+    x = L.shard(x + a + L.mlp(sp["mlp"], cfg, h2, rules), P("DP", None, None), rules)
     return x, k, v
 
 
-def prefill(cfg, params, batch, cache_len=None):
+def prefill(cfg, params, batch, rules=None, cache_len=None):
     """Logits of the last prompt token and the decode cache, whose KV slots
     are ``cache_len`` (default the prompt length) long."""
-    x0 = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+    x0 = L.token_embeddings(cfg, params, batch["tokens"], rules)
     B, S, _ = x0.shape
-    positions = torch.arange(S, device=x0.device).expand(B, S)
+    positions = T.positions_for(x0)
     Sc = cache_len or S
     shape = (n_shared(cfg), B, Sc, cfg.n_kv_heads, cfg.head_dim)
-    sk = x0.new_zeros(shape)
-    sv = x0.new_zeros(shape)
+    sk, sv = (L.zeros_like_spec(x0, shape, T.KV_CACHE_SPEC, rules) for _ in range(2))
     x = x0
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         layer = L.layer_at(params["layers"], i)
         h = L.rmsnorm(x, layer["ln"])
-        y, (conv_st, ssm_st) = M.mixer_forward(layer["mixer"], cfg, h)
-        x = x + y
+        y, (conv_st, ssm_st) = M.mixer_forward(layer["mixer"], cfg, h, rules)
+        x = L.shard(x + y, P("DP", None, None), rules)
         convs.append(conv_st)
         ssms.append(ssm_st)
         if _is_shared(cfg, i):
-            x, k, v = _shared_prefill(cfg, params["shared"], x, x0, positions)
+            x, k, v = _shared_prefill(cfg, params["shared"], x, x0, positions, rules)
             j = i // cfg.shared_attn_every
-            sk[j, :, :S] = k
-            sv[j, :, :S] = v
+            L.write_seq(sk[j], k, rules)
+            L.write_seq(sv[j], v, rules)
     x = L.rmsnorm(x, params["ln_f"])
-    logits = L.unembed(params["embed"], x[:, -1:])
-    return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms),
-                    "shared_k": sk, "shared_v": sv}
+    logits = L.unembed(params["embed"], x[:, -1:], rules)
+    return logits, {**M.stack_states(convs, ssms, rules), "shared_k": sk, "shared_v": sv}
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos, rules=None):
     """One token for every sequence at position ``pos`` (B,). Updates
     ``cache`` IN PLACE (where the JAX package returns a new cache from a
     donated one) and returns it."""
-    x = L.embed(params["embed"], token).to(cfg.dtype())
+    x = L.token_embeddings(cfg, params, token, rules)
     x0 = x
     sp = params["shared"]
     for i in range(cfg.n_layers):
@@ -150,17 +173,17 @@ def decode_step(cfg, params, cache, token, pos):
         h = L.rmsnorm(x, layer["ln"])
         y, conv_st, ssm_st = M.mixer_decode(layer["mixer"], cfg, h,
                                             cache["conv"][i], cache["ssm"][i])
-        cache["conv"][i].copy_(conv_st)
-        cache["ssm"][i].copy_(ssm_st)
-        x = x + y
+        M.write_states(cache, i, conv_st, ssm_st)
+        x = L.shard(x + y, P("DP", None, None), rules)
         if _is_shared(cfg, i):
             j = i // cfg.shared_attn_every
             h = L.rmsnorm(torch.cat([x, x0], dim=-1), sp["ln1"])
-            h = h @ sp["wcat"]
+            h = L.shard(h @ sp["wcat"], P("DP", None, None), rules)
             a, _, _ = L.attention_decode(sp["attn"], cfg, h, cache["shared_k"][j],
-                                         cache["shared_v"][j], pos)
+                                         cache["shared_v"][j], pos, rules)
             h2 = L.rmsnorm(a, sp["ln2"])
-            x = x + a + L.mlp(sp["mlp"], cfg, h2)
+            x = L.shard(x + a + L.mlp(sp["mlp"], cfg, h2, rules), P("DP", None, None),
+                        rules)
     x = L.rmsnorm(x, params["ln_f"])
-    logits = L.unembed(params["embed"], x)
+    logits = L.unembed(params["embed"], x, rules)
     return logits, cache

@@ -12,21 +12,139 @@ Conventions, as in the JAX package:
 ``attend`` (self-attention, and an encoder-decoder's cross-attention with
 keys of their own length) runs kernel K2 on CUDA tensors
 (``kernels.ops.flash_attention``, differentiable through K2's backward kernel
-for self-attention) and its plain version on CPU tensors. Sharding (``shard``, ``specs_*``) waits for ``launch/shardings``.
+for self-attention) and its plain version on CPU tensors.
+
+Sharding. Every ``init_*`` has a matching ``specs_*`` returning a
+same-structure tree of ``PartitionSpec``s (the concrete mesh axes come from
+``launch.shardings`` rules). With ``rules`` and DTensor parameters and
+inputs, activations are DTensors: ``shard`` redistributes them (the JAX
+package's ``with_sharding_constraint``) and the elementwise ops, matrix
+products and norms run through DTensor's sharding rules. These run on each
+rank's local shards through ``local_map`` instead:
+  * ``rope`` (positions per local batch row),
+  * ``attend``: K2 and its backward, batch over dp and heads over tp, so no
+    collective (heads stay whole where KV does not divide tp),
+  * ``attention_decode``'s softmax over a sequence-sharded cache
+    (flash-decoding: two all-reduces over tp, max then sum) and its cache
+    write, made only by the rank that holds position ``pos``,
+  * ``write_seq``, a prefill's cache write,
+  * ``softmax_xent``, over rows whose vocab is gathered.
+``rules=None`` (and plain tensors) runs the single-device code unchanged.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor import zeros as mesh_zeros
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (  # noqa: F401  (re-exported)
     ATTN_CHUNK, attend_chunked, attend_full)
+from repro_torch.launch.shardings import P, placements, resolve_spec
 from repro_torch.tree import tree_leaves, tree_map  # noqa: F401  (re-exported)
+
+
+# ---------------------------------------------------------------------------
+# sharding
+# ---------------------------------------------------------------------------
+
+def shard(x, spec: P, rules=None):
+    """Redistribute the DTensor ``x`` to ``spec``, divisibility-sanitized
+    (the JAX package's sharding constraint); a no-op without rules or on a
+    plain tensor. A partial sum becomes a reduce-scatter where the target
+    shards the dim, an all-reduce where it replicates it."""
+    if rules is None or not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(mesh, resolve_spec(x.shape, spec, rules)))
+
+
+def zeros_like_spec(x, shape, spec: P, rules=None):
+    """Zeros of ``shape`` in x's dtype on x's device; a DTensor laid out by
+    ``spec`` on x's mesh where ``x`` is one."""
+    if not isinstance(x, DTensor):
+        return x.new_zeros(shape)
+    mesh = x.device_mesh
+    return mesh_zeros(shape, dtype=x.dtype, device_mesh=mesh,
+                      placements=placements(mesh, resolve_spec(shape, spec, rules)))
+
+
+def on_shards(fn, out_placements, *args, summed=()):
+    """``fn(*args)`` on each rank's local shards of the DTensor ``args``
+    (``local_map``; other arguments pass as they are), its output a DTensor
+    with ``out_placements``, or, for a function of several outputs, a list
+    of placements per output. The arguments at the indices ``summed`` are
+    replicated over mesh dimensions that split the others' work, so their
+    local gradients are partial sums there (see :func:`summed_over`)."""
+    several = isinstance(out_placements[0], (list, tuple))
+    outs = tuple(map(list, out_placements)) if several else list(out_placements)
+    grads = None
+    if summed:
+        others = [a for i, a in enumerate(args) if i not in summed and isinstance(a, DTensor)]
+        grads = tuple(summed_over(a, others) if i in summed and isinstance(a, DTensor)
+                      else getattr(a, "placements", None) for i, a in enumerate(args))
+    return local_map(fn, out_placements=outs, in_grad_placements=grads)(*args)
+
+
+def summed_over(t: DTensor, others) -> tuple:
+    """Placements of the gradient of ``t`` where it meets ``others`` on
+    local shards: a partial sum on each mesh dimension that ``t``
+    replicates and one of ``others`` splits."""
+    return tuple(Partial() if p == Replicate() and any(o.placements[i].is_shard()
+                                                       for o in others) else p
+                 for i, p in enumerate(t.placements))
+
+
+def batch_on_mesh(t, like, rules):
+    """``t`` (a plain tensor with the batch on its first dim, the same full
+    tensor on every rank) on the mesh of the DTensor ``like``, split over dp
+    where the batch divides; ``t`` itself where ``like`` is a plain tensor or
+    ``t`` a DTensor already."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return distribute_tensor(t, mesh, placements(mesh, resolve_spec(t.shape, P("DP"), rules)),
+                             src_data_rank=None)
+
+
+def like_batch(x, t):
+    """``t``, a plain tensor with the batch on its first dim (the same full
+    tensor on every rank), as a DTensor split over the mesh dimensions that
+    split ``x``'s batch (each rank keeps its rows); ``t`` itself where ``x``
+    is a plain tensor or ``t`` a DTensor already."""
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    pl = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    return distribute_tensor(t, x.device_mesh, pl, src_data_rank=None)
+
+
+def shard_offset(x: DTensor, dim: int) -> int:
+    """Where this rank's shard of ``x`` starts along ``dim`` (even shards;
+    mesh dimensions that split ``dim`` nest left to right)."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    idx = 0
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            idx = idx * mesh.size(i) + coord[i]
+    return idx * x.to_local().shape[dim]
+
+
+def _sharding_dims(x: DTensor, dim: int) -> list:
+    return [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+
+
+def stacked(specs):
+    """A layer's specs with the leading ``L`` dim of a stack (replicated)."""
+    return tree_map(lambda s: P(None, *s), specs)
 
 
 def stack_layers(n: int, make_layer: Callable[[], dict]) -> dict:
@@ -121,7 +239,10 @@ def layernorm(x, scale, bias, eps=1e-5):
 # ---------------------------------------------------------------------------
 
 def rope(x, positions, theta: float = 10000.0):
-    """x: (..., S, H, hd); positions: (..., S). Angles in float32."""
+    """x: (..., S, H, hd); positions: (..., S). Angles in float32. On a
+    DTensor, per local shard (``positions`` split like x's batch)."""
+    if isinstance(x, DTensor):
+        return on_shards(lambda x, p: rope(x, p, theta), x.placements, x, positions)
     hd = x.shape[-1]
     half = hd // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
@@ -171,13 +292,38 @@ def init_attention(generator, cfg, dtype):
     return p
 
 
-def _qkv(params, cfg, x, positions):
+def specs_attention(cfg, rules):
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": P(rules.fsdp_for(d), rules.tp_for(H * hd)),
+        "wk": P(rules.fsdp_for(d), rules.tp_for(KV * hd)),
+        "wv": P(rules.fsdp_for(d), rules.tp_for(KV * hd)),
+        "wo": P(rules.tp_for(H * hd), rules.fsdp_for(d)),
+    }
+    if cfg.qk_norm:
+        p["q_scale"] = P(None)
+        p["k_scale"] = P(None)
+    return p
+
+
+def head_spec(H: int, KV: int, rules):
+    """Spec of q/k/v (B,S,heads,hd): batch over dp, heads over tp where both
+    the H query and the KV key heads divide it (so that a rank's q heads read
+    its own kv heads)."""
+    tp = "TP" if rules.tp_for(H) and rules.tp_for(KV) else None
+    return P("DP", None, tp, None)
+
+
+def _qkv(params, cfg, x, positions, rules=None):
     """Project + reshape + qk-norm + rope. x: (B, S, d)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(B, S, H, hd)
     k = (x @ params["wk"]).reshape(B, S, KV, hd)
     v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    if rules is not None:
+        spec = head_spec(H, KV, rules)
+        q, k, v = (shard(t, spec, rules) for t in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_scale"])
         k = rmsnorm(k, params["k_scale"])
@@ -193,31 +339,55 @@ def _group(q, KV):
     return q.reshape(B, S, KV, H // KV, hd)
 
 
-def attend(q, k, v, *, causal: bool = True):
+def attend(q, k, v, *, causal: bool = True, rules=None):
     """Self- or cross-attention, q (B,S,H,hd) against k/v (B,Sk,KV,hd) (causal
-    needs Sk == S): K2 on CUDA tensors, its plain version on the CPU."""
+    needs Sk == S): K2 on CUDA tensors, its plain version on the CPU. On
+    DTensors (with ``rules``), K2 runs on each rank's shards, batch over dp
+    and heads over tp (``head_spec``)."""
+    if isinstance(q, DTensor):
+        spec = head_spec(q.shape[2], k.shape[2], rules)
+        q, k, v = (shard(t, spec, rules) for t in (q, k, v))
+        return on_shards(lambda q, k, v: ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal),
+            q.placements, q, k, v)
     return ops.flash_attention(q, k, v, causal=causal)
 
 
-def attention_train(params, cfg, x, positions):
+def attention_train(params, cfg, x, positions, rules=None):
     """Causal self-attention over a full sequence (train / prefill)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(params, cfg, x, positions)
-    o = attend(q, k, v, causal=True)
+    q, k, v = _qkv(params, cfg, x, positions, rules)
+    o = attend(q, k, v, causal=True, rules=rules)
     o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return o @ params["wo"]
 
 
-def attention_decode(params, cfg, x, cache_k, cache_v, pos):
+def attention_decode(params, cfg, x, cache_k, cache_v, pos, rules=None):
     """One-token decode against a (B, S, KV, hd) KV cache.
 
     pos: (B,) current position per sequence (uniform in batched serving).
     The new token's K/V are written into ``cache_k``/``cache_v`` IN PLACE at
     ``pos[0]`` (where the JAX package returns updated copies of a donated
     cache); the same tensors are returned.
+
+    With DTensors the cache is SEQUENCE-sharded over the tp axis
+    (flash-decoding, ``cache_specs``): each rank holds a slice of the
+    context, q/k/v of the new token are gathered whole (they are tiny), and
+    :func:`_decode_attend` runs on the local shards.
     """
     B = x.shape[0]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if isinstance(x, DTensor):
+        pos = like_batch(x, pos)
+        q, k, v = _qkv(params, cfg, x, pos[:, None], rules)
+        whole = P("DP", None, None, None)
+        q, k, v = (shard(t, whole, rules) for t in (q, k, v))
+        mesh = cache_k.device_mesh
+        groups = [mesh.get_group(i) for i in _sharding_dims(cache_k, 1)]
+        start = shard_offset(cache_k, 1)
+        o = on_shards(lambda *a: _decode_attend(*a, groups=groups, start=start),
+                      q.placements, q, k, v, cache_k, cache_v, pos)
+        return o.reshape(B, 1, H * hd) @ params["wo"], cache_k, cache_v
     q, k, v = _qkv(params, cfg, x, pos[:, None])
     # insert new kv at pos (same position for the whole batch in serving)
     cache_k.index_copy_(1, pos[:1], k.to(cache_k.dtype))
@@ -234,6 +404,65 @@ def attention_decode(params, cfg, x, cache_k, cache_v, pos):
     return (o @ params["wo"]), cache_k, cache_v
 
 
+def _decode_attend(q, k, v, cache_k, cache_v, pos, *, groups, start):
+    """One rank's part of sharded decode attention, on local tensors: q, k,
+    v (B,1,heads,hd) whole, this rank's cache slice (B,Sl,KV,hd) holding
+    positions ``start`` to ``start + Sl`` (over the process ``groups`` that
+    split the sequence). Writes k/v where this rank holds ``pos[0]``, else
+    rewrites a slot with its own value. The softmax is normalised locally,
+    then rescaled by this rank's share of the global sum: the maxima and the
+    sums over the split key axis are two small all-reduces, and the outputs
+    a third. Over one rank the share is exactly 1, and over no groups (an
+    unsplit cache) there is none: the output is then the single-device
+    one, bit for bit."""
+    B, _, H, hd = q.shape
+    KV, Sl = cache_k.shape[2], cache_k.shape[1]
+    idx = (pos[:1] - start).clamp(0, Sl - 1)
+    mine = ((pos[:1] >= start) & (pos[:1] < start + Sl)).view(1, 1, 1, 1)
+    for c, new in ((cache_k, k), (cache_v, v)):
+        c.index_copy_(1, idx, torch.where(mine, new.to(c.dtype), c.index_select(1, idx)))
+    qg = _group(q, KV)                                      # (B,1,KV,G,hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, cache_k).float() * hd ** -0.5
+    at = torch.arange(start, start + Sl, device=q.device)
+    logits = torch.where((at[None, :] <= pos[:, None])[:, None, None, None, :],
+                         logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, cache_v)       # (B,1,KV,G,hd)
+    if groups:
+        m = logits.amax(-1, keepdim=True)                   # (B,KV,G,1,1)
+        gm = m.clone()
+        for g in groups:
+            dist.all_reduce(gm, op=dist.ReduceOp.MAX, group=g)
+        share = torch.exp(logits - m).sum(-1, keepdim=True) * torch.exp(m - gm)
+        total = share.clone()
+        for g in groups:
+            dist.all_reduce(total, group=g)
+        o = o.float() * (share / total).permute(0, 3, 1, 2, 4)   # (B,1,KV,G,1)
+        for g in groups:
+            dist.all_reduce(o, group=g)
+        o = o.to(q.dtype)
+    return o.reshape(B, 1, H, hd)
+
+
+def write_seq(cache, new, rules=None):
+    """``cache[:, :S] = new`` for a cache (B, Sc, ...) and ``new`` (B, S,
+    ...): a prefill's KV write. On DTensors ``new`` is gathered whole but for
+    its batch and each rank writes the positions of its cache shard."""
+    S = new.shape[1]
+    if not isinstance(cache, DTensor):
+        cache[:, :S] = new
+        return
+    new = shard(new, P("DP"), rules)
+    start = shard_offset(cache, 1)
+
+    def write(c, n):
+        end = min(S, start + c.shape[1])
+        if start < end:
+            c[:, :end - start] = n[:, start:end]
+        return c
+    on_shards(write, cache.placements, cache, new)
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / squared-ReLU / GELU)
 # ---------------------------------------------------------------------------
@@ -248,11 +477,21 @@ def init_mlp(generator, cfg, dtype):
             "wo": dense_init(generator, (f, d), dtype)}
 
 
-def mlp(params, cfg, x):
+def specs_mlp(cfg, rules):
+    d, f = cfg.d_model, cfg.d_ff
+    wi = P(rules.fsdp_for(d), rules.tp_for(f))
+    wo = P(rules.tp_for(f), rules.fsdp_for(d))
+    if cfg.act == "swiglu":
+        return {"wi": wi, "wg": wi, "wo": wo}
+    return {"wi": wi, "wo": wo}
+
+
+def mlp(params, cfg, x, rules=None):
     if cfg.act == "swiglu":
         h = silu(x @ params["wg"]) * (x @ params["wi"])
     else:
         h = ACTS[cfg.act](x @ params["wi"])
+    h = shard(h, P("DP", None, "TP"), rules)
     return h @ params["wo"]
 
 
@@ -265,17 +504,52 @@ def init_embed(generator, cfg, dtype):
                                 scale=0.02)}
 
 
-def embed(params, tokens):
+def specs_embed(cfg, rules):
+    return {"table": P(rules.tp_for(cfg.vocab),
+                       rules.fsdp_for(cfg.d_model))}
+
+
+def embed(params, tokens, rules=None):
+    """Rows of the table. With a DTensor table, a lookup in the vocab-sharded
+    table (its fsdp shards gathered), summed over tp, batch over dp; plain
+    ``tokens`` are put on the table's mesh first."""
+    if isinstance(params["table"], DTensor):
+        tokens = batch_on_mesh(tokens, params["table"], rules)
+        table = shard(params["table"], P("TP"), rules)
+        return shard(F.embedding(tokens, table), P("DP", None, None), rules)
     return params["table"][tokens]
 
 
-def unembed(params, x):
-    return torch.einsum("bsd,vd->bsv", x, params["table"])
+def token_embeddings(cfg, params, tokens, rules=None):
+    """The tokens' embeddings in the compute dtype, batch over dp."""
+    x = embed(params["embed"], tokens, rules).to(cfg.dtype())
+    return shard(x, P("DP", None, None), rules)
 
 
-def softmax_xent(logits, targets, mask=None):
+def unembed(params, x, rules=None):
+    logits = torch.einsum("bsd,vd->bsv", x, params["table"])
+    return shard(logits, P("DP", None, "TP"), rules)
+
+
+def softmax_xent(logits, targets, mask=None, rules=None):
     """Token-level cross-entropy with a float32 log-sum-exp; with ``mask``,
-    the masked mean over at least one token."""
+    the masked mean over at least one token. On DTensors, each rank takes
+    its rows (vocab gathered) and the sums (or, without a mask, the means of
+    equal shards) are reduced over dp."""
+    if isinstance(logits, DTensor):
+        logits = shard(logits, P("DP", None, None), rules)
+        targets, mask = (None if t is None else shard(like_batch(logits, t), P("DP"), rules)
+                         for t in (targets, mask))
+        mesh = logits.device_mesh
+        whole = [Replicate()] * mesh.ndim
+        sums = [Partial() if p == Shard(0) else Replicate() for p in logits.placements]
+        if mask is None:        # the mean of equal shards' means
+            n = math.prod(mesh.size(i) for i in _sharding_dims(logits, 0))
+            mean = on_shards(lambda lg, t: softmax_xent(lg, t) / n, sums, logits, targets)
+            return mean.redistribute(placements=whole)
+        total, count = (t.redistribute(placements=whole) for t in
+                        on_shards(_nll_sums, [sums, sums], logits, targets, mask))
+        return total / torch.clamp_min(count, 1)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
@@ -284,3 +558,11 @@ def softmax_xent(logits, targets, mask=None):
         nll = nll * mask
         return nll.sum() / torch.clamp_min(mask.sum(), 1)
     return nll.mean()
+
+
+def _nll_sums(logits, targets, mask):
+    """The masked cross-entropy's numerator and denominator."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, targets[..., None].long())[..., 0]
+    return (nll * mask).sum(), mask.sum()

@@ -12,17 +12,27 @@ Layout: x is split into ``nh`` heads of size ``hp = d_inner // nh``; B and
 C are shared across heads (a single group, as mamba2-780m has). The JAX
 package's ``lax.scan`` over the layers is a loop, and its ``jax.checkpoint``
 of the scan body (``cfg.remat``) is ``torch.utils.checkpoint`` around each
-layer (``layers.maybe_remat``). The sharding specs wait for
-``launch/shardings``.
+layer (``layers.maybe_remat``).
+
+Sharded (``rules`` with DTensor parameters and batch): the fused input
+projection is gathered whole over tp before its split, x, dt, A and D are
+split by heads over tp, and the chunked scan (K3 and ``SSDIntraChunk`` on a
+card, the loop over chunks around it) runs on each rank's local shards
+through ``local_map``: heads are independent and B/C are whole on every
+rank, so it needs no collective. The gated norm over the head-split
+``d_inner`` and ``out_proj`` reduce over tp through DTensor. Decode's O(1)
+update runs through DTensor's rules on a cache laid out by ``cache_specs``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch import default_device
 from repro_torch.kernels.ssd_scan import ssd_chunked  # noqa: F401  (re-exported)
+from repro_torch.launch.shardings import P
 from repro_torch.models import layers as L
 
 
@@ -47,9 +57,33 @@ def init_mixer(generator, cfg, dt):
     }
 
 
+def mixer_specs(cfg, rules):
+    d, din, N, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    conv_dim = din + 2 * N
+    return {
+        "in_proj": P(rules.fsdp_for(d), rules.tp_for(2 * din + 2 * N + nh)),
+        "conv_w": P(None, rules.tp_for(conv_dim)),
+        "conv_b": P(rules.tp_for(conv_dim)),
+        "A_log": P(rules.tp_for(nh)), "D": P(rules.tp_for(nh)),
+        "dt_bias": P(rules.tp_for(nh)),
+        "norm": P(rules.tp_for(din)),
+        "out_proj": P(rules.tp_for(din), rules.fsdp_for(d)),
+    }
+
+
 def init_layer(generator, cfg, dt):
     return {"mixer": init_mixer(generator, cfg, dt),
             "ln": L.ones(generator, (cfg.d_model,), dt)}
+
+
+def layer_specs(cfg, rules):
+    return {"mixer": mixer_specs(cfg, rules), "ln": P(None)}
+
+
+def param_specs(cfg, rules):
+    return {"embed": L.specs_embed(cfg, rules),
+            "layers": L.stacked(layer_specs(cfg, rules)),
+            "ln_f": P(None)}
 
 
 def check_generator(generator: torch.Generator, device) -> torch.Generator:
@@ -75,10 +109,10 @@ def init_params(cfg, generator: torch.Generator, *, device=None):
 # SSD mixer
 # ---------------------------------------------------------------------------
 
-def _split_proj(params, cfg, u):
+def _split_proj(params, cfg, u, rules=None):
     """u: (B,S,d) -> z (B,S,din), xBC (B,S,din+2N), dt (B,S,nh)."""
     din, N, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    zxbcdt = u @ params["in_proj"]
+    zxbcdt = L.shard(u @ params["in_proj"], P("DP", None, None), rules)
     z, xBC, dt = torch.split(zxbcdt, [din, din + 2 * N, nh], dim=-1)
     return z, xBC, dt
 
@@ -97,22 +131,42 @@ def _causal_conv(params, cfg, xBC, conv_state=None):
     return L.silu(out + params["conv_b"]), new_state
 
 
-def mixer_forward(params, cfg, u, state=None):
+def mixer_forward(params, cfg, u, rules=None, state=None):
     """Full-sequence mixer (prefill). Returns (y, (conv_st, ssm_st))."""
     B, S, _ = u.shape
     din, N, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     hp = din // nh
-    z, xBC, dt = _split_proj(params, cfg, u)
+    z, xBC, dt = _split_proj(params, cfg, u, rules)
     xBC, conv_st = _causal_conv(params, cfg, xBC)
     x, Bm, Cm = torch.split(xBC, [din, N, N], dim=-1)
-    x = x.reshape(B, S, nh, hp)
+    x = L.shard(x.reshape(B, S, nh, hp), P("DP", None, "TP", None), rules)
     dt = F.softplus(dt.float() + params["dt_bias"])        # (B,S,nh)
     A = -torch.exp(params["A_log"])
-    y, ssm_st = ssd_chunked(x, dt, A, Bm.float(), Cm.float(), params["D"],
-                            cfg.ssm_chunk, initial_state=state)
+    if rules is None:
+        y, ssm_st = ssd_chunked(x, dt, A, Bm.float(), Cm.float(), params["D"],
+                                cfg.ssm_chunk, initial_state=state)
+    else:
+        y, ssm_st = _ssd_on_shards(cfg, rules, x, dt, A, Bm.float(), Cm.float(),
+                                   params["D"], state)
     y = y.reshape(B, S, din)
     y = L.rmsnorm(y * L.silu(z), params["norm"])           # gated norm
     return y @ params["out_proj"], (conv_st, ssm_st)
+
+
+def _ssd_on_shards(cfg, rules, x, dt, A, Bm, Cm, D, state):
+    """``ssd_chunked`` on each rank's local shards: x (B,S,nh,hp), dt, A and
+    D split by heads as x is, Bm/Cm whole but for the batch (so their
+    gradients, and A's and D's over dp, are partial sums)."""
+    heads = P("DP", None, "TP")
+    dt = L.shard(dt, heads, rules)
+    A, D = (L.shard(t, P("TP"), rules) for t in (A, D))
+    Bm, Cm = (L.shard(t, P("DP", None, None), rules) for t in (Bm, Cm))
+    xp = x.placements
+    state_pl = tuple(Shard(1) if p == Shard(2) else p for p in xp)   # (B,nh,hp,N)
+    return L.on_shards(
+        lambda x, dt, A, Bm, Cm, D: ssd_chunked(x, dt, A, Bm, Cm, D, cfg.ssm_chunk,
+                                                initial_state=state),
+        [xp, state_pl], x, dt, A, Bm, Cm, D, summed=(2, 3, 4, 5))
 
 
 def mixer_decode(params, cfg, u, conv_state, ssm_state):
@@ -147,23 +201,23 @@ def mixer_decode(params, cfg, u, conv_state, ssm_state):
 # model: train / prefill / decode
 # ---------------------------------------------------------------------------
 
-def block(cfg, layer, x):
+def block(cfg, layer, x, rules=None):
     h = L.rmsnorm(x, layer["ln"])
-    y, _ = mixer_forward(layer["mixer"], cfg, h)
-    return x + y
+    y, _ = mixer_forward(layer["mixer"], cfg, h, rules)
+    return L.shard(x + y, P("DP", None, None), rules)
 
 
-def trunk(cfg, params, x):
+def trunk(cfg, params, x, rules=None):
     for layer in L.unstack_layers(params["layers"], cfg.n_layers):
-        x = L.maybe_remat(cfg, block, cfg, layer, x)
+        x = L.maybe_remat(cfg, block, cfg, layer, x, rules)
     return L.rmsnorm(x, params["ln_f"])
 
 
-def loss_fn(cfg, params, batch):
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
-    x = trunk(cfg, params, x)
-    logits = L.unembed(params["embed"], x)
-    return L.softmax_xent(logits, batch["targets"], batch.get("mask"))
+def loss_fn(cfg, params, batch, rules=None):
+    x = L.token_embeddings(cfg, params, batch["tokens"], rules)
+    x = trunk(cfg, params, x, rules)
+    logits = L.unembed(params["embed"], x, rules)
+    return L.softmax_xent(logits, batch["targets"], batch.get("mask"), rules)
 
 
 def init_cache(cfg, B, S, dtype=None, *, device=None):
@@ -179,33 +233,56 @@ def init_cache(cfg, B, S, dtype=None, *, device=None):
             "ssm": torch.zeros((Lyr, B, nh, hp, N), dtype=dt, device=device)}
 
 
-def prefill(cfg, params, batch, cache_len=None):
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype())
+CACHE_SPECS = {"conv": P(None, "DP", None, "TP"),
+               "ssm": P(None, "DP", "TP", None, None)}
+
+
+def cache_specs(cfg, rules=None):
+    return dict(CACHE_SPECS)
+
+
+def stack_states(convs, ssms, rules=None):
+    """The per-layer states of a prefill, stacked and laid out by
+    :func:`cache_specs`."""
+    return {name: L.shard(torch.stack(states), CACHE_SPECS[name], rules)
+            for name, states in (("conv", convs), ("ssm", ssms))}
+
+
+def write_states(cache, i, conv_st, ssm_st):
+    """Layer ``i``'s new decode states into ``cache``, in place."""
+    for name, st in (("conv", conv_st), ("ssm", ssm_st)):
+        slot = cache[name][i]
+        if isinstance(slot, DTensor):
+            st = st.redistribute(slot.device_mesh, slot.placements)
+        slot.copy_(st)
+
+
+def prefill(cfg, params, batch, rules=None, cache_len=None):
+    x = L.token_embeddings(cfg, params, batch["tokens"], rules)
     convs, ssms = [], []
     for i in range(cfg.n_layers):
         layer = L.layer_at(params["layers"], i)
         h = L.rmsnorm(x, layer["ln"])
-        y, (conv_st, ssm_st) = mixer_forward(layer["mixer"], cfg, h)
-        x = x + y
+        y, (conv_st, ssm_st) = mixer_forward(layer["mixer"], cfg, h, rules)
+        x = L.shard(x + y, P("DP", None, None), rules)
         convs.append(conv_st)
         ssms.append(ssm_st)
     x = L.rmsnorm(x, params["ln_f"])
-    logits = L.unembed(params["embed"], x[:, -1:])
-    return logits, {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}
+    logits = L.unembed(params["embed"], x[:, -1:], rules)
+    return logits, stack_states(convs, ssms, rules)
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos, rules=None):
     """One token for every sequence. Updates ``cache`` IN PLACE (where the
     JAX package returns a new cache from a donated one) and returns it."""
-    x = L.embed(params["embed"], token).to(cfg.dtype())
+    x = L.token_embeddings(cfg, params, token, rules)
     for i in range(cfg.n_layers):
         layer = L.layer_at(params["layers"], i)
         h = L.rmsnorm(x, layer["ln"])
         y, conv_st, ssm_st = mixer_decode(layer["mixer"], cfg, h,
                                           cache["conv"][i], cache["ssm"][i])
-        cache["conv"][i].copy_(conv_st)
-        cache["ssm"][i].copy_(ssm_st)
-        x = x + y
+        write_states(cache, i, conv_st, ssm_st)
+        x = L.shard(x + y, P("DP", None, None), rules)
     x = L.rmsnorm(x, params["ln_f"])
-    logits = L.unembed(params["embed"], x)
+    logits = L.unembed(params["embed"], x, rules)
     return logits, cache

@@ -8,7 +8,9 @@ The family serves and trains: the batch of a train step carries
 ``image_embeds`` beside its tokens (``models.stub_inputs``).
 """
 
-from repro_torch.models.transformer import (decode_step, init_cache,
-                                            init_params, loss_fn, prefill)
+from repro_torch.models.transformer import (cache_specs, decode_step, init_cache,
+                                            init_params, loss_fn, param_specs,
+                                            prefill)
 
-__all__ = ["init_params", "loss_fn", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_params", "param_specs", "loss_fn", "init_cache",
+           "cache_specs", "prefill", "decode_step"]
