@@ -5,7 +5,8 @@ drives the weighted-quorum data plane, zamba2-1.2b, qwen3-1.7b,
 granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b,
 zamba2-1.2b, granite-moe-3b-a800m and seamless-m4t-medium training at full
 size, then qwen3-1.7b training and zamba2-1.2b serving sharded on a 1x1
-("data", "model") mesh over NCCL, and times them.
+("data", "model") mesh over NCCL, then the dry-run (fake tensors, a fake
+256-rank process group), and times them.
 
 Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
 
@@ -105,13 +106,28 @@ Phases, each of which raises on failure so that the script exits non-zero:
      greedy tokens equal, K3 38 and K2 6 a prefill, none a decode step;
      each beside the unsharded path's step time, TTFT, decode ms, peak
      memory and idle share, and whether it is bit-equal;
- 10. kernel times beside the plain version's, the bound and the library's,
-     as one JSON line {"kernels": [...]}: the kernel's device time
-     (torch.profiler), the time per call through the wrapper and of the plain
-     version (CUDA events over back-to-back calls, so host overhead
-     included); K2 and its backward also at the seamless cross-attention
-     shape;
- 11. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+ 10. the dry-run (``launch.dryrun``), after the sharded phases: qwen3-1.7b's
+     and zamba2-1.2b's training cells (8 x 2048 tokens, 2 microbatches,
+     remat, unsharded) traced once on fake CUDA tensors through the kernel
+     ops' fakes, each against one real step on the card: the traced kernel-op
+     calls equal the launches a step makes (qwen3: K2 112, its backward 56;
+     zamba2: K3 152, its backward 76, K2 24, its backward 12), the traced
+     FLOP equal FlopCounterMode's count of the real step exactly, the traced
+     argument bytes equal the real parameters', moments' and batch's; the
+     roofline's terms beside the training path's median step, the peak
+     estimate beside max_memory_allocated (ratios printed, not held); then
+     ``lower_cell`` over a fake 256-rank process group on the (16, 16) CUDA
+     mesh for qwen3-8b train_4k and zamba2-1.2b prefill_32k: both OK, K2
+     (and K3) reaching their ops' fakes on local shards as often as the
+     configuration launches them, each record printed as {"dryrun_record": ...};
+ 11. kernel times beside the plain version's, the bound and the library's,
+     as one JSON line {"kernels": [...]}: the kernel's device time from a
+     replayed CUDA graph of 10 calls (``ms``; K1's from torch.profiler) and
+     from torch.profiler (``kernel_ms``), the time per call through the
+     wrapper and of the plain version (CUDA events over back-to-back calls,
+     so host overhead included); K2 and its backward also at the seamless
+     cross-attention shape;
+ 12. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -150,7 +166,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quorum_commit as qc  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, roofline, serve, train  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
 from repro_torch.launch.shardings import make_rules  # noqa: E402
 from repro_torch.models import family  # noqa: E402
@@ -231,10 +247,16 @@ ENCDEC_TRAIN_CUT = {"microbatches": 2}
 SHARDED_TRAIN_STEPS = 3             # one warm-up step, then 2 timed
 SHARDED_DECODE = 8
 SHARDED_TOL = 1e-4                  # sharded against unsharded, atol and rtol
+# the dry-run on the card: production-mesh cells traced over a fake 16x16
+# process group (launch.dryrun.lower_cell)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("zamba2-1.2b", "prefill_32k"))
+# the dry-run's kernel ops, by the names of the launch counts
+KERNEL_OPS = {"flash_attention": "flash_attention", "flash_attention_bwd": "flash_attention_bwd",
+              "ssd_intra_chunk": "ssd_scan", "ssd_intra_chunk_bwd": "ssd_scan_bwd"}
 
-HBM_BYTES_PER_S = 3.35e12
+HBM_BYTES_PER_S = roofline.HBM_BW
 FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
+BF16_OPS_PER_S = roofline.PEAK_FLOPS
 TF32_OPS_PER_S = 495e12
 FP64_OPS_PER_S = 67e12              # float64 on the tensor cores
 L2_BYTES = 50 * 2**20
@@ -692,6 +714,34 @@ def event_ms(fn, iters: int) -> float:
         fn(i)
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device time per call on the device's clock (CUDA events) over one
+    replay of a CUDA graph of ``iters`` back-to-back calls: the kernels run
+    with no host time between them, which neither the profiler's
+    attribution nor the events around eager calls (``event_ms``) can
+    promise."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -2064,6 +2114,122 @@ def sharded_serving_path(arch, name, seed, unsharded) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# the dry-run (launch.dryrun) on the card
+# ---------------------------------------------------------------------------
+
+def traced_launches(calls) -> dict:
+    """The kernel ops' ``calls`` in a trace, by the names of the launch
+    counts."""
+    out = dict.fromkeys(launch_counts(), 0)
+    out.update({KERNEL_OPS[k]: v for k, v in calls.items()})
+    return out
+
+
+def dryrun_training_cell(arch, seed, path) -> dict:
+    """``arch``'s training cell (TRAIN_BATCH x TRAIN_SEQ tokens, the
+    configuration's microbatches, remat) traced unsharded on fake CUDA
+    tensors (``launch.dryrun.trace_step``), against one real step of the
+    same cell on the card: the traced kernel-op calls equal the launches
+    ``expected_train_launches`` counts (and the real step's), the traced
+    FLOP equal ``FlopCounterMode``'s count of the real step exactly, and the
+    traced argument bytes equal the real parameters', moments' and batch's.
+    The roofline's terms beside the training path's (``path``) median step,
+    and the peak estimate beside the real step's ``max_memory_allocated``,
+    with their ratios (neither held)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = configs.get(arch)
+    fam = family(cfg)
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_state_dtype)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=seed)
+    batch = train.train_batch(cfg, dcfg, 0, "cuda")
+    inputs = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in batch.items()}
+    costs, memory, trace_s = dryrun.trace_step(cfg, "train", inputs, device="cuda")
+    traced = traced_launches(costs.calls)
+
+    params = fam.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    opt_state = adamw.init(params, opt_cfg)
+    step_fn = train.make_train_step(cfg, opt_cfg, total_steps=TRAIN_TOTAL_STEPS)
+    real_argument = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params) + tree_leaves(opt_state)
+                        + list(batch.values()))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with FlopCounterMode(display=False) as counter:
+        step_fn(params, opt_state, batch, 0)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated()
+    real = launch_counts()
+    real_flops = counter.get_total_flops()
+    del params, opt_state
+    want = expected_train_launches(cfg)
+    for what, got in (("traced kernel-op calls", traced), ("real launches", real)):
+        if got != want:
+            raise AssertionError(f"dry-run {cfg.name}: {what} {got}, expected {want}")
+    if costs.flops != real_flops:
+        raise AssertionError(f"dry-run {cfg.name}: traced FLOP {costs.flops!r}, "
+                             f"FlopCounterMode on a real step {real_flops!r}")
+    if memory["argument_bytes_per_device"] != real_argument:
+        raise AssertionError(f"dry-run {cfg.name}: traced argument bytes "
+                             f"{memory['argument_bytes_per_device']}, real {real_argument}")
+    rf = roofline.analyze(costs, chips=1,
+                          model_flops=model_flops(cfg, TRAIN_BATCH * TRAIN_SEQ)[0])
+    bound = max(rf.t_compute, rf.t_memory, rf.t_collective)
+    median = path["step_s_median_after_first"]
+    rec = {"arch": cfg.name, "trace_s": trace_s, "kernel_calls": traced,
+           "flops": costs.flops, "flop_counter_flops": real_flops,
+           "argument_bytes": memory["argument_bytes_per_device"],
+           "real_argument_bytes": real_argument, "memory": memory,
+           "roofline": rf.to_dict(), "step_s_median": median,
+           "bytes_by_op_top": dict(sorted(costs.by_kind.items(), key=lambda kv: -kv[1])[:10]),
+           "roofline_bound_s_over_median_step": bound / median,
+           "peak_estimate_gib": memory["peak_estimate_per_device"] / 2**30,
+           "max_memory_allocated_gib": real_peak / 2**30,
+           "peak_estimate_over_max_allocated": memory["peak_estimate_per_device"] / real_peak}
+    print(f"dry-run {cfg.name} (unsharded, fake CUDA tensors, {trace_s:.1f} s): kernel-op "
+          f"calls {traced} equal the launches; {costs.flops:.6g} FLOP equal FlopCounterMode's "
+          f"on a real step; argument bytes {real_argument} equal; t_compute "
+          f"{rf.t_compute:.4f} s, t_memory {rf.t_memory:.4f} s, bottleneck {rf.bottleneck}, "
+          f"against the training path's median step {median:.3f} s (ratio "
+          f"{bound / median:.3f}); peak estimate {rec['peak_estimate_gib']:.2f} GiB against "
+          f"max_memory_allocated {rec['max_memory_allocated_gib']:.2f} GiB")
+    return rec
+
+
+def dryrun_path(seed, training, hybrid_training) -> dict:
+    """The dry-run on the card. qwen3-1.7b's and zamba2-1.2b's training
+    cells traced unsharded on fake CUDA tensors (:func:`dryrun_training_cell`),
+    then ``launch.dryrun.lower_cell`` on the fake (16, 16) CUDA mesh for each
+    of DRYRUN_CELLS: each ends OK, its kernel-op calls on local shards
+    (``local_map``) as many as the cell's configuration launches unsharded,
+    and its record printed."""
+    t0 = time.perf_counter()
+    out = {"unsharded": [dryrun_training_cell(DENSE_ARCH, seed, training),
+                         dryrun_training_cell(HYBRID_ARCH, seed, hybrid_training)]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["production_mesh"] = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = dryrun.lower_cell(arch, shape, False)
+        if rec["status"] != "OK":
+            raise AssertionError(f"dry-run {arch} {shape}: {rec}")
+        cfg = configs.get(arch)
+        kind = dryrun.SHAPES[shape]["kind"]
+        want = (expected_train_launches(cfg) if kind == "train"
+                else expected_serve_launches(cfg)[0])
+        got = traced_launches(rec["kernel_calls"])
+        if got != want:
+            raise AssertionError(f"dry-run {arch} {shape} on the 16x16 mesh: kernel-op calls "
+                                 f"{got}, expected {want}")
+        print(json.dumps({"dryrun_record": rec}))
+        out["production_mesh"].append(rec)
+    out["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun_path": out}))
+    return out
+
+
 def time_k2(gen) -> dict:
     """K2 at the serving prefill's shape: kernel, plain and SDPA times."""
     B, S, H, KV, hd = SERVE_BATCH, SERVE_PROMPT, 32, 32, 64
@@ -2279,14 +2445,16 @@ def library_times(library) -> dict:
 
 
 def timing(name, shape, kernel, plain, library, ops_s, bytes_s, readings=1, **extra) -> dict:
-    """Times of ``kernel``, ``plain`` and ``library`` and the bound. With
-    ``readings`` > 1 the kernel's device time is the median of that many
-    profiler readings of 30 calls each, all of which are recorded."""
+    """Times of ``kernel``, ``plain`` and ``library`` and the bound: the
+    kernel's device time from a replayed CUDA graph (``graph_ms``) and from
+    the profiler, which with ``readings`` > 1 is the median of that many
+    readings of 30 calls each, all of which are recorded."""
     read = [device_ms(kernel, 30) for _ in range(readings)]
     kernel_ms = None if None in read else statistics.median(read)
     return {"name": name, "shape": shape,
             "kernel_ms": kernel_ms if kernel_ms is not None else event_ms(kernel, 10),
             "kernel_timed_by": "profiler" if kernel_ms is not None else "events",
+            "graph_ms": graph_ms(kernel),
             **({"kernel_ms_readings": read} if readings > 1 else {}),
             "call_ms": event_ms(kernel, 10), "plain_ms": event_ms(plain, 3),
             "plain_device_ms": device_ms(plain, 3),
@@ -2356,6 +2524,9 @@ def main() -> int:
     sharded_serving = sharded_serving_path(SERVE_ARCH, "sharded_serving_path", args.seed,
                                            serving)
     torch.cuda.empty_cache()
+    # the dry-run, after the sharded phases (it makes its own fake process group)
+    dryrun_path(args.seed, training, hybrid_training)
+    torch.cuda.empty_cache()
 
     shapes = [time_k1(rng, OPS, N_REPLICAS, members=True)]
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
@@ -2414,7 +2585,7 @@ def main() -> int:
             "name": k["name"], "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k['name']}.cu",
             "replaces": replaces, "launches": launches,
-            "ms": k["kernel_ms"], "card": card, **k})
+            "ms": k["graph_ms"], "card": card, **k})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

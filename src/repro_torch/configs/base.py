@@ -4,7 +4,8 @@ four input shapes (port of ``repro.configs.base``).
 ``dtype()`` and ``pdtype()`` give torch dtypes. The JAX config's
 ``use_pallas`` has no counterpart: in the port the tensors' device decides
 whether a kernel runs (a CUDA tensor launches it, a CPU tensor runs its plain
-version), so no flag is needed. ``input_specs`` waits for ``launch/dryrun``.
+version), so no flag is needed. ``input_specs`` gives ``meta`` tensors where
+the JAX package gives ``jax.ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -123,3 +124,28 @@ class ModelConfig:
         ff = self.top_k * (3 if self.act == "swiglu" else 2) * d * f \
             + d * self.n_experts
         return L * (attn + ff + 2 * d) + self.vocab * d + d
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """``meta`` tensor stand-ins for every model input of a shape cell: the
+    JAX package's keys, shapes and dtypes, never allocated; the dry-run
+    traces against them. Modality frontends are stubs: seamless gets
+    precomputed frame embeddings, internvl2 patch embeddings."""
+    sh = SHAPES[shape_name]
+    S, B, kind = sh["seq_len"], sh["global_batch"], sh["kind"]
+
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, f = torch.int32, cfg.dtype()
+    if kind == "decode":      # one new token against a seq_len cache
+        return {"token": spec((B, 1), i32), "pos": spec((B,), i32)}
+    batch = {"tokens": spec((B, S), i32)}
+    if kind == "train":
+        batch["targets"] = spec((B, S), i32)
+        batch["mask"] = spec((B, S), f)
+    if cfg.family == "encdec":
+        batch["frames"] = spec((B, S // cfg.enc_len_ratio, cfg.d_model), f)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = spec((B, cfg.n_image_tokens, cfg.d_model), f)
+    return batch

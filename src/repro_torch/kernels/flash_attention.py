@@ -14,7 +14,9 @@ is (causal attention with ``Sk != S`` raises before any launch, forward or
 backward).
 
 The functions:
-  * :func:`flash_attention_cuda` launches the hand-written CUDA kernel
+  * :func:`flash_attention_cuda` calls the ``torch.library`` op
+    ``repro_torch::flash_attention``, whose body launches the hand-written
+    CUDA kernel
     ``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/flash_attention.py`` (``flash_attention`` and its
     ``_kernel``); that source says what bounds it and how it is designed.
@@ -23,7 +25,8 @@ The functions:
     bf16 for the P V product, K/V tiles in a ``cp.async`` ring), float32 on
     CUDA cores in float32 throughout, as its 1e-4 contract asks. With
     ``return_lse`` it also returns each row's log-sum-exp;
-  * :func:`flash_attention_bwd_cuda` launches the backward kernels
+  * :func:`flash_attention_bwd_cuda` calls ``repro_torch::flash_attention_bwd``,
+    whose body launches the backward kernels
     (``csrc/flash_attention_bwd.cu``): dq, dk, dv from q, k, v, do and the
     log-sum-exp, by recompute and with no atomics, for any key length that
     the forward takes. bfloat16 runs two
@@ -39,6 +42,13 @@ The functions:
     launches the kernel (through :class:`FlashAttention` where a gradient
     is wanted) or raises, a CPU tensor runs the plain version, whose autograd
     gradient is the backward kernel's yardstick.
+
+The two ops' bodies are the ctypes launches, with their checks and launch
+counts. Each op has a fake (``register_fake``: its outputs' shapes and
+dtypes), which a fake or meta tensor runs, having no data to compute on:
+the dry-run (``launch.dryrun``) traces the card's own path through it. Each
+has a FLOP formula (``register_flop_formula``, :func:`attention_flops`),
+which ``torch.utils.flop_counter`` and ``launch.op_analysis`` count.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ import functools
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 
@@ -139,13 +150,10 @@ def no_dtensor(name: str, *tensors) -> None:
         raise TypeError(f"{name}: got a DTensor; call it on local shards (local_map)")
 
 
-def _check(name: str, q, k, v, do=None, *, causal=True):
-    """Raise unless q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for the
-    backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
-    of one dtype on one device that the kernels take. ``Sk`` may differ from
-    ``S`` (and be at least 1) only for non-causal attention, forward or
-    backward. Returns (B, S, Sk, H, KV, hd)."""
-    no_dtensor(name, q, k, v, *(() if do is None else (do,)))
+def _dims(name: str, q, k, v, do=None, *, causal=True):
+    """Raise unless q is ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for
+    the backward, ``do`` q's shape, with ``Sk`` other than ``S`` (and at
+    least 1) only for non-causal attention. Returns (B, S, Sk, H, KV, hd)."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q must be (B,S,H,hd) and k, v (B,Sk,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -160,16 +168,32 @@ def _check(name: str, q, k, v, do=None, *, causal=True):
     if do is not None and do.shape != q.shape:
         raise ValueError(f"{name}: do must have q's shape {tuple(q.shape)}; got "
                          f"{tuple(do.shape)}")
+    return B, S, Sk, H, KV, hd
+
+
+def _kernel_takes(name: str, tensors, hd) -> None:
+    """Raise unless ``tensors`` are all float32 or all bfloat16 and the head
+    dim is one the kernels take."""
+    if tensors[0].dtype not in DTYPES or any(x.dtype != tensors[0].dtype for x in tensors):
+        raise TypeError(f"{name}: inputs must all be float32 or all bfloat16; got "
+                        f"{[x.dtype for x in tensors]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd}; the kernel takes {HEAD_DIMS}")
+
+
+def _check(name: str, q, k, v, do=None, *, causal=True):
+    """Raise unless q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` and, for the
+    backward, ``do`` (q's shape) are contiguous, 16-byte aligned CUDA tensors
+    of one dtype on one device that the kernels take (:func:`_dims`,
+    :func:`_kernel_takes`). Returns (B, S, Sk, H, KV, hd)."""
+    no_dtensor(name, q, k, v, *(() if do is None else (do,)))
+    B, S, Sk, H, KV, hd = _dims(name, q, k, v, do, causal=causal)
     tensors = (q, k, v) if do is None else (q, k, v, do)
     device = q.device
     if device.type != "cuda" or any(x.device != device for x in tensors):
         raise ValueError(f"{name}: inputs must lie on one CUDA device; got "
                          f"{[str(x.device) for x in tensors]}")
-    if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in tensors):
-        raise TypeError(f"{name}: inputs must all be float32 or all bfloat16; got "
-                        f"{[x.dtype for x in tensors]}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd}; the kernel takes {HEAD_DIMS}")
+    _kernel_takes(name, tensors, hd)
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if any(x.data_ptr() % 16 for x in tensors):
@@ -177,9 +201,20 @@ def _check(name: str, q, k, v, do=None, *, causal=True):
     return B, S, Sk, H, KV, hd
 
 
+def attention_flops(B: int, S: int, Sk: int, H: int, hd: int, causal: bool) -> int:
+    """K2's FLOP: q kᵀ and p v, 2·hd each for every (query, key) pair it
+    computes: 4·B·H·hd·S(S+1)/2 causal (the lower triangle, diagonal
+    included), 4·B·H·hd·S·Sk otherwise. Its backward's five products
+    (q kᵀ and dO vᵀ recomputed, dV, dQ, dK) are 2.5 times that."""
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    return 4 * B * H * hd * pairs
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, return_lse: bool = False):
-    """Launch the CUDA kernel on the current stream of the inputs' device.
+    """K2 through its op ``repro_torch::flash_attention``: the CUDA kernel on
+    the current stream of the inputs' device, or the op's fake on fake and
+    meta tensors.
 
     Takes contiguous CUDA tensors of one dtype (float32 or bfloat16) on one
     device: q ``(B,S,H,hd)``, k and v ``(B,Sk,KV,hd)`` with ``H % KV == 0``
@@ -189,15 +224,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``return_lse`` also each row's float32 log-sum-exp of the scaled logits,
     ``(B,H,S)``. Raises on anything else and when the launch fails.
     """
+    no_dtensor("flash_attention_cuda", q, k, v)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, return_lse)
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool, return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op's body: check, launch, count. The log-sum-exp is empty,
+    ``(0,)``, where ``return_lse`` is false (the kernel writes none)."""
     global launches
     B, S, Sk, H, KV, hd = _check("flash_attention_cuda", q, k, v, causal=causal)
     out = torch.empty_like(q)
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
+    lse = torch.empty((B, H, S) if return_lse else (0,), dtype=torch.float32,
+                      device=q.device)
     if q.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     with torch.cuda.device(q.device):
         err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), None if lse is None else lse.data_ptr(),
+                          out.data_ptr(), lse.data_ptr() if return_lse else None,
                           B, S, Sk, H, KV, hd, int(causal),
                           int(q.dtype == torch.bfloat16),
                           torch.cuda.current_stream(q.device).cuda_stream)
@@ -205,26 +251,54 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention_cuda: kernel launch failed with "
                            f"CUDA error {err}")
     launches += 1
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@_flash_attention_launch.register_fake
+def _(q, k, v, causal, return_lse):
+    B, S, _, H, _, hd = _dims("flash_attention_cuda", q, k, v, causal=causal)
+    _kernel_takes("flash_attention_cuda", (q, k, v), hd)
+    return (torch.empty_like(q),
+            q.new_empty((B, H, S) if return_lse else (0,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, return_lse, *args, out_shape=None, **kwargs):
+    B, S, H, hd = q_shape
+    return attention_flops(B, S, k_shape[1], H, hd, causal)
 
 
 def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
-    """Launch K2's backward kernel on the current stream: ``(dq, dk, dv)`` in
-    the inputs' dtype from q, k, v, the output's gradient ``do`` (q's shape
-    and dtype) and the forward's float32 log-sum-exp ``(B,H,S)``; dk and dv
-    have k's shape. Takes what :func:`flash_attention_cuda` takes (keys of
-    their own length for non-causal attention); raises on anything else and
-    when a launch fails. (The forward's output
-    is not needed: the kernel takes rowsum(do * o) from the recomputed
-    probabilities, which in bf16 is more accurate than from the rounded
-    output; see the source.)"""
-    global bwd_launches
-    B, S, Sk, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do, causal=causal)
+    """K2's backward through its op ``repro_torch::flash_attention_bwd``:
+    the backward kernels on the current stream (the op's fake on fake and
+    meta tensors). ``(dq, dk, dv)`` in the inputs' dtype from q, k, v, the
+    output's gradient ``do`` (q's shape and dtype) and the forward's float32
+    log-sum-exp ``(B,H,S)``; dk and dv have k's shape. Takes what
+    :func:`flash_attention_cuda` takes (keys of their own length for
+    non-causal attention); raises on anything else and when a launch fails.
+    (The forward's output is not needed: the kernel takes rowsum(do * o)
+    from the recomputed probabilities, which in bf16 is more accurate than
+    from the rounded output; see the source.)"""
+    no_dtensor("flash_attention_bwd_cuda", q, k, v, do)
+    return tuple(torch.ops.repro_torch.flash_attention_bwd(q, k, v, do, lse, causal))
+
+
+def _lse_check(name, q, lse, B, H, S):
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (B, H, S)
             or not lse.is_contiguous()):
-        raise ValueError(f"flash_attention_bwd_cuda: lse must be a contiguous float32 "
+        raise ValueError(f"{name}: lse must be a contiguous float32 "
                          f"{(B, H, S)} tensor on {q.device}; got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                do: torch.Tensor, lse: torch.Tensor,
+                                causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's body: check, launch, count."""
+    global bwd_launches
+    B, S, Sk, H, KV, hd = _check("flash_attention_bwd_cuda", q, k, v, do, causal=causal)
+    _lse_check("flash_attention_bwd_cuda", q, lse, B, H, S)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
@@ -240,6 +314,21 @@ def flash_attention_bwd_cuda(q, k, v, do, lse, *, causal: bool = True):
                            f"CUDA error {err}")
     bwd_launches += 1
     return dq, dk, dv
+
+
+@_flash_attention_bwd_launch.register_fake
+def _(q, k, v, do, lse, causal):
+    B, S, _, H, _, hd = _dims("flash_attention_bwd_cuda", q, k, v, do, causal=causal)
+    _kernel_takes("flash_attention_bwd_cuda", (q, k, v, do), hd)
+    _lse_check("flash_attention_bwd_cuda", q, lse, B, H, S)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, do_shape, lse_shape, causal, *args, out_shape=None,
+      **kwargs):
+    B, S, H, hd = q_shape
+    return attention_flops(B, S, k_shape[1], H, hd, causal) * 5 // 2
 
 
 class FlashAttention(torch.autograd.Function):

@@ -8,13 +8,16 @@ K3 — and across chunks a short linear recurrence carries the
 ``(nh, hp, N)`` state.
 
 For the intra-chunk block:
-  * :func:`ssd_intra_chunk_cuda` launches the hand-written CUDA kernel
+  * :func:`ssd_intra_chunk_cuda` calls the ``torch.library`` op
+    ``repro_torch::ssd_intra_chunk``, whose body launches the hand-written
+    CUDA kernel
     ``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/ssd_scan.py`` (``ssd_intra_chunk`` and its ``_kernel``);
     that source says what bounds it and how it is designed. Its products
     run on the TF32 tensor cores in the 3xTF32 split (each float32 operand
     as the sum of two TF32 values), which keeps float32 accuracy;
-  * :func:`ssd_intra_chunk_bwd_cuda` launches K3's backward,
+  * :func:`ssd_intra_chunk_bwd_cuda` calls ``repro_torch::ssd_intra_chunk_bwd``,
+    whose body launches K3's backward,
     ``csrc/ssd_scan_bwd.cu``, over the lower triangle only: Mᵀ dy, B dSᵀ,
     x dS, dC and dB on the TF32 tensor cores in the same 3xTF32 split, dy xᵀ
     and C Bᵀ in float64 on the tensor cores, each entry rounded once to
@@ -34,6 +37,11 @@ For the intra-chunk block:
     on and an input requires a gradient) or raises, a CPU tensor runs the
     plain version, whose gradient autograd takes.
 
+As K2's (``kernels.flash_attention``), the two ops' bodies are the ctypes
+launches with their checks and launch counts; each op has a fake (its
+outputs' shapes and dtypes), which fake and meta tensors run, and a FLOP
+formula (:func:`ssd_flops`, :func:`ssd_bwd_flops`).
+
 :func:`ssd_chunked` is the host side around it (the ``seg`` cumsum, the
 inter-chunk recurrence as a loop over chunks, ``y_inter`` and the ``D``
 skip). It follows ``repro.models.mamba2.ssd_chunked``, dtype promotions
@@ -47,6 +55,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import no_dtensor
@@ -178,14 +187,11 @@ def _launcher():
     return fn
 
 
-def _check(name, x, dt, seg, Bm, Cm, grads=()):
-    """Raise unless the inputs (and, for the backward, ``grads``: dy, dstate,
-    ddecay) are what the kernels take: contiguous CUDA tensors on one device,
-    x ``(B,nc,Q,nh,hp)`` in bfloat16 or float32, dt and seg ``(B,nc,Q,nh)``,
-    Bm and Cm ``(B,nc,Q,N)``, dy ``(B,nc,Q,nh,hp)``, dstate
-    ``(B,nc,nh,hp,N)`` and ddecay ``(B,nc,nh)`` in float32, with Q, hp and N
-    from 1 to ``MAX_DIM``. Returns (B, nc, Q, nh, hp, N)."""
-    no_dtensor(name, x, dt, seg, Bm, Cm, *grads)
+def _dims(name, x, dt, seg, Bm, Cm, grads=()):
+    """Raise unless x is ``(B,nc,Q,nh,hp)``, dt and seg ``(B,nc,Q,nh)``, Bm
+    and Cm ``(B,nc,Q,N)`` and, for the backward, ``grads`` (dy, dstate,
+    ddecay) ``(B,nc,Q,nh,hp)``, ``(B,nc,nh,hp,N)`` and ``(B,nc,nh)``.
+    Returns (B, nc, Q, nh, hp, N)."""
     if x.ndim != 5:
         raise ValueError(f"{name}: x must be (B,nc,Q,nh,hp); got {tuple(x.shape)}")
     B, nc, Q, nh, hp = x.shape
@@ -201,12 +207,13 @@ def _check(name, x, dt, seg, Bm, Cm, grads=()):
         got = tuple(tuple(g.shape) for g in grads)
         if got != want:
             raise ValueError(f"{name}: dy, dstate and ddecay must be {want}; got {got}")
-    tensors = (x, dt, seg, Bm, Cm, *grads)
-    device = x.device
-    if device.type != "cuda" or any(t.device != device for t in tensors):
-        raise ValueError(f"{name}: inputs must lie on one CUDA "
-                         f"device; got {[str(t.device) for t in tensors]}")
-    if (x.dtype not in (torch.float32, torch.bfloat16)
+    return B, nc, Q, nh, hp, N
+
+
+def _kernel_takes(name, tensors, Q, nh, hp, N) -> None:
+    """Raise unless x (``tensors[0]``) is bfloat16 or float32 and the rest
+    float32, with Q, hp and N from 1 to ``MAX_DIM``."""
+    if (tensors[0].dtype not in (torch.float32, torch.bfloat16)
             or any(t.dtype != torch.float32 for t in tensors[1:])):
         raise TypeError(f"{name}: x must be float32 or bfloat16 and "
                         "everything else float32; got "
@@ -214,14 +221,52 @@ def _check(name, x, dt, seg, Bm, Cm, grads=()):
     if not (1 <= Q <= MAX_DIM and 1 <= hp <= MAX_DIM and 1 <= N <= MAX_DIM and nh):
         raise ValueError(f"{name}: Q={Q}, hp={hp}, N={N}, nh={nh}; the "
                          f"kernel takes Q, hp and N from 1 to {MAX_DIM}")
+
+
+def _check(name, x, dt, seg, Bm, Cm, grads=()):
+    """Raise unless the inputs (and, for the backward, ``grads``: dy, dstate,
+    ddecay) are what the kernels take: contiguous CUDA tensors on one device
+    of the shapes :func:`_dims` and the dtypes and sizes
+    :func:`_kernel_takes` checks. Returns (B, nc, Q, nh, hp, N)."""
+    no_dtensor(name, x, dt, seg, Bm, Cm, *grads)
+    B, nc, Q, nh, hp, N = _dims(name, x, dt, seg, Bm, Cm, grads)
+    tensors = (x, dt, seg, Bm, Cm, *grads)
+    device = x.device
+    if device.type != "cuda" or any(t.device != device for t in tensors):
+        raise ValueError(f"{name}: inputs must lie on one CUDA "
+                         f"device; got {[str(t.device) for t in tensors]}")
+    _kernel_takes(name, tensors, Q, nh, hp, N)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     return B, nc, Q, nh, hp, N
 
 
+def ssd_flops(B: int, nc: int, Q: int, nh: int, hp: int, N: int) -> int:
+    """K3's FLOP, from its three products over each (b, c) chunk, with
+    T = Q(Q+1)/2 the pairs i >= j of the lower triangle:
+    C Bᵀ, shared by the heads, 2·N a pair; M x per head, 2·hp a pair; the
+    chunk's state contribution (w x)ᵀ B per head, 2·Q·hp·N. In all
+    2·B·nc·(T·(N + nh·hp) + nh·Q·hp·N); the decay mask and exponentials are
+    not counted, as ``torch.utils.flop_counter`` counts no elementwise op."""
+    T = Q * (Q + 1) // 2
+    return 2 * B * nc * (T * (N + nh * hp) + nh * Q * hp * N)
+
+
+def ssd_bwd_flops(B: int, nc: int, Q: int, nh: int, hp: int, N: int) -> int:
+    """K3's backward's FLOP, from its products over each (b, c) chunk (T as
+    in :func:`ssd_flops`): per head dy xᵀ and Mᵀ dy over the lower
+    triangle, 2·hp a pair each, and x dS and B dSᵀ, 2·Q·hp·N each; per
+    chunk C Bᵀ, dC = dCB B and dB = dCBᵀ C over the triangle, 2·N a pair
+    each. In all 2·B·nc·(nh·(2·T·hp + 2·Q·hp·N) + 3·T·N)."""
+    T = Q * (Q + 1) // 2
+    return 2 * B * nc * (nh * (2 * T * hp + 2 * Q * hp * N) + 3 * T * N)
+
+
 def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
                          Bm: torch.Tensor, Cm: torch.Tensor):
-    """Launch the CUDA kernel on the current stream of the inputs' device.
+    """K3 through its op ``repro_torch::ssd_intra_chunk``: the CUDA kernel
+    on the current stream of the inputs' device (the op's fake on fake and
+    meta tensors).
 
     Takes contiguous CUDA tensors on one device: x ``(B,nc,Q,nh,hp)`` in
     bfloat16 or float32, dt and seg ``(B,nc,Q,nh)`` and Bm, Cm ``(B,nc,Q,N)``
@@ -230,12 +275,19 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
     with no autograd graph: :func:`ssd_intra_chunk` takes
     :class:`SSDIntraChunk` where a gradient is wanted.
     """
+    no_dtensor("ssd_intra_chunk_cuda", x, dt, seg, Bm, Cm)
+    return tuple(torch.ops.repro_torch.ssd_intra_chunk(x, dt, seg, Bm, Cm))
+
+
+@torch.library.custom_op("repro_torch::ssd_intra_chunk", mutates_args=())
+def _ssd_intra_chunk_launch(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
+                            Bm: torch.Tensor, Cm: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's body: check, launch, count."""
     global launches
     B, nc, Q, nh, hp, N = _check("ssd_intra_chunk_cuda", x, dt, seg, Bm, Cm)
     device = x.device
-    y = torch.empty((B, nc, Q, nh, hp), dtype=torch.float32, device=device)
-    state = torch.empty((B, nc, nh, hp, N), dtype=torch.float32, device=device)
-    decay = torch.empty((B, nc, nh), dtype=torch.float32, device=device)
+    y, state, decay = _outputs(x, B, nc, Q, nh, hp, N)
     if B * nc == 0:
         return y, state, decay
     with torch.cuda.device(device):
@@ -252,6 +304,25 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor,
     return y, state, decay
 
 
+def _outputs(x, B, nc, Q, nh, hp, N):
+    """K3's float32 outputs, uninitialised: y, the chunk states, the decays."""
+    return (x.new_empty((B, nc, Q, nh, hp), dtype=torch.float32),
+            x.new_empty((B, nc, nh, hp, N), dtype=torch.float32),
+            x.new_empty((B, nc, nh), dtype=torch.float32))
+
+
+@_ssd_intra_chunk_launch.register_fake
+def _(x, dt, seg, Bm, Cm):
+    dims = _dims("ssd_intra_chunk_cuda", x, dt, seg, Bm, Cm)
+    _kernel_takes("ssd_intra_chunk_cuda", (x, dt, seg, Bm, Cm), *dims[2:])
+    return _outputs(x, *dims)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_intra_chunk)
+def _(x_shape, *args, out_shape=None, **kwargs):
+    return ssd_flops(*x_shape, args[2][-1])
+
+
 @functools.cache
 def _bwd_launcher():
     fn = _build.library("ssd_scan_bwd").ssd_intra_chunk_bwd_launch
@@ -263,21 +334,29 @@ def _bwd_launcher():
 
 
 def ssd_intra_chunk_bwd_cuda(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
-    """Launch K3's backward kernels on the current stream of the inputs'
-    device: ``(dx, ddt, dseg, dBm, dCm)`` as :func:`ssd_intra_chunk_bwd_plain`
-    gives them, from K3's inputs and the gradients of its outputs. Takes
-    what :func:`ssd_intra_chunk_cuda` takes, and float32 ``dy``, ``dstate``
-    and ``ddecay`` of y's, state's and decay's shapes; raises on anything
-    else and when a launch fails."""
+    """K3's backward through its op ``repro_torch::ssd_intra_chunk_bwd``:
+    the backward kernels on the current stream of the inputs' device (the
+    op's fake on fake and meta tensors). ``(dx, ddt, dseg, dBm, dCm)`` as
+    :func:`ssd_intra_chunk_bwd_plain` gives them, from K3's inputs and the
+    gradients of its outputs. Takes what :func:`ssd_intra_chunk_cuda` takes,
+    and float32 ``dy``, ``dstate`` and ``ddecay`` of y's, state's and
+    decay's shapes; raises on anything else and when a launch fails."""
+    no_dtensor("ssd_intra_chunk_bwd_cuda", x, dt, seg, Bm, Cm, dy, dstate, ddecay)
+    return tuple(torch.ops.repro_torch.ssd_intra_chunk_bwd(x, dt, seg, Bm, Cm, dy,
+                                                           dstate, ddecay))
+
+
+@torch.library.custom_op("repro_torch::ssd_intra_chunk_bwd", mutates_args=())
+def _ssd_intra_chunk_bwd_launch(
+        x: torch.Tensor, dt: torch.Tensor, seg: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor, ddecay: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The op's body: check, launch, count."""
     global bwd_launches
     B, nc, Q, nh, hp, N = _check("ssd_intra_chunk_bwd_cuda", x, dt, seg, Bm, Cm,
                                  (dy, dstate, ddecay))
     device = x.device
-    dx = torch.empty_like(x)
-    ddt = torch.empty_like(dt)
-    dseg = torch.empty_like(seg)
-    dBm = torch.empty_like(Bm)
-    dCm = torch.empty_like(Cm)
+    dx, ddt, dseg, dBm, dCm = (torch.empty_like(t) for t in (x, dt, seg, Bm, Cm))
     if B * nc == 0:
         return dx, ddt, dseg, dBm, dCm
     heads = min(nh, BWD_HEADS_PER_BLOCK)
@@ -297,6 +376,19 @@ def ssd_intra_chunk_bwd_cuda(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
                            f"CUDA error {err}")
     bwd_launches += 1
     return dx, ddt, dseg, dBm, dCm
+
+
+@_ssd_intra_chunk_bwd_launch.register_fake
+def _(x, dt, seg, Bm, Cm, dy, dstate, ddecay):
+    dims = _dims("ssd_intra_chunk_bwd_cuda", x, dt, seg, Bm, Cm, (dy, dstate, ddecay))
+    _kernel_takes("ssd_intra_chunk_bwd_cuda", (x, dt, seg, Bm, Cm, dy, dstate, ddecay),
+                  *dims[2:])
+    return tuple(torch.empty_like(t) for t in (x, dt, seg, Bm, Cm))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_intra_chunk_bwd)
+def _(x_shape, *args, out_shape=None, **kwargs):
+    return ssd_bwd_flops(*x_shape, args[2][-1])
 
 
 def _ssd_chunked(intra, x, dt, A, Bm, Cm, D, chunk, initial_state):

@@ -99,15 +99,16 @@ def cross_attend(params, cfg, x, mem_k, mem_v, rules=None):
     """x: (B,Sq,d); mem_k/mem_v: (B,Se,KV,hd) precomputed."""
     B, Sq, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, Sq, H, hd)
+    q = (L.whole_gradient(x) @ params["wq"]).reshape(B, Sq, H, hd)
     q = L.shard(q, P("DP", None, "TP", None), rules)
     o = L.attend(q, mem_k, mem_v, causal=False, rules=rules)
-    return o.reshape(B, Sq, H * hd) @ params["wo"]
+    return L.proj_out(o.reshape(B, Sq, H * hd), params["wo"], rules)
 
 
 def cross_kv(params, cfg, mem):
     B, Se, _ = mem.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
+    mem = L.whole_gradient(mem)
     k = (mem @ params["wk"]).reshape(B, Se, KV, hd)
     v = (mem @ params["wv"]).reshape(B, Se, KV, hd)
     return k, v
@@ -122,7 +123,8 @@ def enc_block(cfg, layer, x, positions, rules=None):
     h = L.rmsnorm(x, layer["ln1"])
     q, k, v = L._qkv(layer["attn"], cfg, h, positions, rules)
     o = L.attend(q, k, v, causal=False, rules=rules)
-    x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
+    x = x + L.proj_out(o.reshape(B, S, cfg.n_heads * cfg.head_dim), layer["attn"]["wo"],
+                       rules)
     h = L.rmsnorm(x, layer["ln2"])
     x = x + L.mlp(layer["mlp"], cfg, h, rules)
     return L.shard(x, P("DP", None, None), rules)
@@ -204,7 +206,8 @@ def prefill(cfg, params, batch, rules=None, cache_len=None):
         h = L.rmsnorm(x, layer["ln1"])
         q, k, v = L._qkv(layer["self"], cfg, h, positions, rules)
         o = L.attend(q, k, v, causal=True, rules=rules)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["self"]["wo"]
+        x = x + L.proj_out(o.reshape(B, S, cfg.n_heads * cfg.head_dim), layer["self"]["wo"],
+                           rules)
         h = L.rmsnorm(x, layer["ln2"])
         mk, mv = cross_kv(layer["cross"], cfg, enc_out)
         L.write_seq(mks[i], mk, rules)

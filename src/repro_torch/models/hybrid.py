@@ -127,7 +127,7 @@ def _shared_prefill(cfg, sp, x, x0, positions, rules=None):
     B, S, _ = h.shape
     q, k, v = L._qkv(sp["attn"], cfg, h, positions, rules)
     o = L.attend(q, k, v, causal=True, rules=rules)
-    a = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ sp["attn"]["wo"]
+    a = L.proj_out(o.reshape(B, S, cfg.n_heads * cfg.head_dim), sp["attn"]["wo"], rules)
     h2 = L.rmsnorm(a, sp["ln2"])
     x = L.shard(x + a + L.mlp(sp["mlp"], cfg, h2, rules), P("DP", None, None), rules)
     return x, k, v

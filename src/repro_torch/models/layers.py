@@ -68,6 +68,48 @@ def shard(x, spec: P, rules=None):
     return x.redistribute(mesh, placements(mesh, resolve_spec(x.shape, spec, rules)))
 
 
+class _GradientLikeInput(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out as the input is
+    (replicated where the input is a partial sum, as DTensor's own
+    redistribution lays a gradient out)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def whole_gradient(x):
+    """``x``, whose gradient comes back laid out as ``x`` is: reduced where
+    it is a partial sum over a dim that ``x`` replicates (the input of
+    tp-split products: q/k/v, the MLP's up projections, whose gradient sums
+    over the split dim), gathered where ``x`` holds whole what a tp-split
+    product's gradient splits (an attention output whose heads tp does not
+    split, before the product that splits its flat dim; unsplit into heads
+    again, a shard of it need not hold whole heads). Reduced, as the JAX
+    package's partitioner reduces it, the gradient reaches the layers below
+    whole; left partial, DTensor carries the sum through the residual stream
+    and runs the next products below on whole weights, repeating the work on
+    every tp rank. A no-op without autograd or on a plain tensor."""
+    if isinstance(x, DTensor) and torch.is_grad_enabled() and x.requires_grad:
+        return _GradientLikeInput.apply(x)
+    return x
+
+
+def proj_out(o, w, rules=None):
+    """``o @ w`` for a product whose contraction dim is split over tp (an
+    attention block's or an MLP's output projection), its partial sums
+    reduced at once, batch over dp, as the JAX package's partitioner reduces
+    them (left partial, they cost what :func:`whole_gradient` says); a plain
+    product without rules. ``o``'s gradient comes back laid out as ``o``
+    (:func:`whole_gradient`)."""
+    return shard(whole_gradient(o) @ w, P("DP", None, None), rules)
+
+
 def zeros_like_spec(x, shape, spec: P, rules=None):
     """Zeros of ``shape`` in x's dtype on x's device; a DTensor laid out by
     ``spec`` on x's mesh where ``x`` is one."""
@@ -318,11 +360,15 @@ def _qkv(params, cfg, x, positions, rules=None):
     """Project + reshape + qk-norm + rope. x: (B, S, d)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, KV, hd)
-    v = (x @ params["wv"]).reshape(B, S, KV, hd)
-    if rules is not None:
-        spec = head_spec(H, KV, rules)
+    x = whole_gradient(x)
+    q, k, v = (x @ params[w] for w in ("wq", "wk", "wv"))
+    spec = head_spec(H, KV, rules) if rules is not None else None
+    if spec is not None and spec[2] is None:
+        # heads stay whole: gather the products' tp-split dim before it is
+        # cut into heads, which a shard of it need not hold whole
+        q, k, v = (shard(t, P("DP", None, None), rules) for t in (q, k, v))
+    q, k, v = (t.reshape(B, S, n, hd) for t, n in ((q, H), (k, KV), (v, KV)))
+    if spec is not None:
         q, k, v = (shard(t, spec, rules) for t in (q, k, v))
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_scale"])
@@ -358,8 +404,7 @@ def attention_train(params, cfg, x, positions, rules=None):
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions, rules)
     o = attend(q, k, v, causal=True, rules=rules)
-    o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return o @ params["wo"]
+    return proj_out(o.reshape(B, S, cfg.n_heads * cfg.head_dim), params["wo"], rules)
 
 
 def attention_decode(params, cfg, x, cache_k, cache_v, pos, rules=None):
@@ -387,7 +432,7 @@ def attention_decode(params, cfg, x, cache_k, cache_v, pos, rules=None):
         start = shard_offset(cache_k, 1)
         o = on_shards(lambda *a: _decode_attend(*a, groups=groups, start=start),
                       q.placements, q, k, v, cache_k, cache_v, pos)
-        return o.reshape(B, 1, H * hd) @ params["wo"], cache_k, cache_v
+        return proj_out(o.reshape(B, 1, H * hd), params["wo"], rules), cache_k, cache_v
     q, k, v = _qkv(params, cfg, x, pos[:, None])
     # insert new kv at pos (same position for the whole batch in serving)
     cache_k.index_copy_(1, pos[:1], k.to(cache_k.dtype))
@@ -487,12 +532,13 @@ def specs_mlp(cfg, rules):
 
 
 def mlp(params, cfg, x, rules=None):
+    x = whole_gradient(x)
     if cfg.act == "swiglu":
         h = silu(x @ params["wg"]) * (x @ params["wi"])
     else:
         h = ACTS[cfg.act](x @ params["wi"])
     h = shard(h, P("DP", None, "TP"), rules)
-    return h @ params["wo"]
+    return proj_out(h, params["wo"], rules)
 
 
 # ---------------------------------------------------------------------------
@@ -512,10 +558,12 @@ def specs_embed(cfg, rules):
 def embed(params, tokens, rules=None):
     """Rows of the table. With a DTensor table, a lookup in the vocab-sharded
     table (its fsdp shards gathered), summed over tp, batch over dp; plain
-    ``tokens`` are put on the table's mesh first."""
+    ``tokens`` are put on the table's mesh first. The table's gradient comes
+    back laid out as the table, as :func:`unembed`'s does, so that the two
+    are added in one layout."""
     if isinstance(params["table"], DTensor):
         tokens = batch_on_mesh(tokens, params["table"], rules)
-        table = shard(params["table"], P("TP"), rules)
+        table = shard(whole_gradient(params["table"]), P("TP"), rules)
         return shard(F.embedding(tokens, table), P("DP", None, None), rules)
     return params["table"][tokens]
 
@@ -527,7 +575,9 @@ def token_embeddings(cfg, params, tokens, rules=None):
 
 
 def unembed(params, x, rules=None):
-    logits = torch.einsum("bsd,vd->bsv", x, params["table"])
+    """Logits over the (tied) table, vocab over tp; the table's gradient
+    laid out as the table (:func:`embed`)."""
+    logits = torch.einsum("bsd,vd->bsv", x, whole_gradient(params["table"]))
     return shard(logits, P("DP", None, "TP"), rules)
 
 

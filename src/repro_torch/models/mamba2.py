@@ -112,7 +112,7 @@ def init_params(cfg, generator: torch.Generator, *, device=None):
 def _split_proj(params, cfg, u, rules=None):
     """u: (B,S,d) -> z (B,S,din), xBC (B,S,din+2N), dt (B,S,nh)."""
     din, N, nh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    zxbcdt = L.shard(u @ params["in_proj"], P("DP", None, None), rules)
+    zxbcdt = L.shard(L.whole_gradient(u) @ params["in_proj"], P("DP", None, None), rules)
     z, xBC, dt = torch.split(zxbcdt, [din, din + 2 * N, nh], dim=-1)
     return z, xBC, dt
 
@@ -150,7 +150,7 @@ def mixer_forward(params, cfg, u, rules=None, state=None):
                                    params["D"], state)
     y = y.reshape(B, S, din)
     y = L.rmsnorm(y * L.silu(z), params["norm"])           # gated norm
-    return y @ params["out_proj"], (conv_st, ssm_st)
+    return L.proj_out(y, params["out_proj"], rules), (conv_st, ssm_st)
 
 
 def _ssd_on_shards(cfg, rules, x, dt, A, Bm, Cm, D, state):

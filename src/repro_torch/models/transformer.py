@@ -144,7 +144,8 @@ def prefill(cfg, params, batch, rules=None, cache_len=None, *, ffn=dense_ffn):
         h = L.rmsnorm(x, layer["ln1"])
         q, k, v = L._qkv(layer["attn"], cfg, h, positions, rules)
         o = L.attend(q, k, v, causal=True, rules=rules)
-        x = x + o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ layer["attn"]["wo"]
+        x = x + L.proj_out(o.reshape(B, S, cfg.n_heads * cfg.head_dim), layer["attn"]["wo"],
+                           rules)
         h = L.rmsnorm(x, layer["ln2"])
         x = L.shard(x + ffn(cfg, layer, h, rules), P("DP", None, None), rules)
         L.write_seq(ks[i], k, rules)

@@ -729,3 +729,53 @@ def test_smoke_families_train_on_the_card_as_on_the_cpu(no_tf32, monkeypatch, ar
     for tree in (0, 1):
         for g, w in zip(tree_leaves(runs["cuda"][tree]), tree_leaves(runs["cpu"][tree])):
             torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K2, K3 and their backwards as torch.library ops: the fakes against the
+# bodies (opcheck, which runs each op for real and on fake tensors), and the
+# FLOP formulas that FlopCounterMode counts
+# ---------------------------------------------------------------------------
+
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Sk,causal", [(96, 96, True), (40, 72, False)])
+def test_k2_ops_pass_opcheck(no_tf32, dtype, S, Sk, causal):
+    q, k, v = cross_inputs(S + Sk, 2, S, Sk, 4, 2, 64, dtype, no_tf32)
+    do = cross_inputs(1, 2, S, Sk, 4, 2, 64, dtype, no_tf32)[0]
+    for return_lse in (False, True):
+        torch.library.opcheck(torch.ops.repro_torch.flash_attention.default,
+                              (q, k, v, causal, return_lse))
+    _, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+    torch.library.opcheck(torch.ops.repro_torch.flash_attention_bwd.default,
+                          (q, k, v, do, lse, causal))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_k3_ops_pass_opcheck(no_tf32, xdtype):
+    dims = (2, 2, 64, 4, 32, 16)
+    args = ssd_inputs(5, *dims, xdtype, no_tf32)
+    torch.library.opcheck(torch.ops.repro_torch.ssd_intra_chunk.default, args)
+    grads = ssd_output_grads(6, *dims, no_tf32)
+    torch.library.opcheck(torch.ops.repro_torch.ssd_intra_chunk_bwd.default,
+                          (*args, *grads))
+
+
+def test_flop_counter_counts_the_kernels_formulas(no_tf32):
+    B, S, H, KV, hd = 2, 256, 4, 2, 64
+    q, k, v = attention_inputs(0, B, S, H, KV, hd, torch.bfloat16, no_tf32)
+    before = fa.launches
+    with FlopCounterMode(display=False) as counter:
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    assert fa.launches == before + 1
+    assert counter.get_total_flops() == 4 * B * H * hd * S * (S + 1) // 2
+    B, nc, Q, nh, hp, N = 2, 2, 128, 4, 64, 32
+    args = ssd_inputs(1, B, nc, Q, nh, hp, N, torch.bfloat16, no_tf32)
+    before = ssd.launches
+    with FlopCounterMode(display=False) as counter:
+        ssd.ssd_intra_chunk_cuda(*args)
+    assert ssd.launches == before + 1
+    tri = Q * (Q + 1) // 2
+    assert counter.get_total_flops() == 2 * B * nc * (tri * (N + nh * hp) + nh * Q * hp * N)

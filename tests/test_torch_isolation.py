@@ -30,7 +30,8 @@ def test_port_sources_import_no_jax_and_no_repro():
     for module in ("models/transformer", "launch/train", "optim/adamw",
                    "optim/schedule", "optim/grad_compress", "data/pipeline",
                    "coord/ckpt_consensus", "coord/grad_quorum", "coord/membership",
-                   "checkpoint/manager", "tree"):
+                   "checkpoint/manager", "tree", "launch/dryrun", "launch/roofline",
+                   "launch/op_analysis"):
         assert f"repro_torch/{module}.py" in names
     bad = [(path.relative_to(ROOT).as_posix(), mod)
            for path in PORT_FILES for mod in imported_modules(path)
@@ -48,6 +49,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.models.transformer, repro_torch.launch.train\n"
         "import repro_torch.optim, repro_torch.data, repro_torch.coord\n"
         "import repro_torch.checkpoint, repro_torch.tree\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('repro', 'jaxlib'))\n"
