@@ -34,11 +34,13 @@
 //
 // bfloat16: `flash_attention_bf16_kernel`, on the tensor cores.
 //   * One block of 4 warps owns a q tile of one (b, h); each warp owns 32 q
-//     rows (two 16-row m tiles) at hd <= 64 and 16 at hd 128, and keeps their
-//     Q fragments, m, l and the float32 output accumulator in registers for
-//     the whole k loop (the TPU kernel carries them in VMEM across a
-//     sequential k-grid axis). With two m tiles, each K or V fragment read
-//     from shared memory feeds two mma.
+//     rows (two 16-row m tiles) at hd <= 64 and 16 at hd 128 and 192, and
+//     keeps their m, l and float32 output accumulator in registers for the
+//     whole k loop (the TPU kernel carries them in VMEM across a sequential
+//     k-grid axis), and their Q fragments too up to hd 128; at hd 192 (96
+//     accumulators) each k step reads Q's fragments from the Q tile in
+//     shared memory. With two m tiles, each K or V fragment read from shared
+//     memory feeds two mma.
 //   * S = Q K^T runs as mma.sync m16n8k16 bf16 with float32 accumulation:
 //     a bf16 x bf16 product is exact in float32, so the scores equal the
 //     reference's float32 scores up to summation order. Scale and mask are
@@ -67,10 +69,11 @@
 //     handed out heaviest first. GQA reads the kv head of each query head in place. Any
 //     S and Sk: rows past S and keys past Sk are zero-filled by cp.async and
 //     masked (the TPU kernel asserts that S divides into its blocks). hd 16,
-//     32, 64, 128.
+//     32, 64, 128, 192 (nemotron-4-340b's 18,432 over 96 heads; 128 KB of
+//     shared memory a block at hd 192).
 //   * Registers (CUDA 12.8 nvcc -O3 for sm_90a, as chip_smoke.py prints
-//     them): 246 at hd 64 (two blocks of 4 warps an SM), 178 at hd 128, 186
-//     at hd 32, 151 at hd 16; no spills.
+//     them): 246 at hd 64 (two blocks of 4 warps an SM), 178 at hd 128, 180
+//     at hd 192 (one block an SM), 186 at hd 32, 151 at hd 16; no spills.
 //
 // float32: `flash_attention_f32_kernel`, on CUDA cores. The float32 contract
 // is 1e-4, which no bf16 or TF32 product meets; only the smoke model's
@@ -336,7 +339,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
   tc_load_rows<HD, kTcBK>(vs, vb, kv_stride, 0, Sk);
   cp_async_commit();
 
-  uint32_t qa[MT][kSteps][4];   // the warp's Q fragments, WR rows x HD
+  // the warp's Q fragments, WR rows x HD, held in registers up to hd 128; at
+  // hd 192 they would take 48 registers beside 96 accumulators, so each k
+  // step reads them from the Q tile in shared memory instead
+  constexpr bool kQInRegs = HD <= 128;
+  uint32_t qa[MT][kQInRegs ? kSteps : 1][4];
   float acc[MT][kDT][4];        // output accumulators: rows g and g + 8 of each m tile
   float m[MT][2], l[MT][2];     // running max of the raw scores; this lane's part of the row sums
 #pragma unroll
@@ -362,13 +369,15 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if constexpr (kQInRegs) {
+      if (kt == 0) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk)
-          ldmatrix_x4(qa[mt][kk], qs + (warp * WR + 16 * mt + lm_r + 8 * (lm_m % 2)) * P +
-                                      16 * kk + 8 * (lm_m / 2));
+          for (int kk = 0; kk < kSteps; ++kk)
+            ldmatrix_x4(qa[mt][kk], qs + (warp * WR + 16 * mt + lm_r + 8 * (lm_m % 2)) * P +
+                                        16 * kk + 8 * (lm_m / 2));
+      }
     }
     const int k0 = kt * kTcBK;
     if (causal && k0 > row0 + WR - 1) {  // every key of the tile lies above the warp's rows
@@ -386,14 +395,20 @@ __global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
       for (int j = 0; j < kNT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
+      if constexpr (!kQInRegs) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4(qa[mt][0], qs + (warp * WR + 16 * mt + lm_r + 8 * (lm_m % 2)) * P +
+                                     16 * kk + 8 * (lm_m / 2));
+      }
 #pragma unroll
       for (int jp = 0; jp < kNT / 2; ++jp) {
         uint32_t kf[4];  // B fragments of key tiles 2 jp and 2 jp + 1
         ldmatrix_x4(kf, kst + (16 * jp + lm_r + 8 * (lm_m / 2)) * P + 16 * kk + 8 * (lm_m % 2));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * jp], qa[mt][kk], kf[0], kf[1]);
-          mma_bf16(s[mt][2 * jp + 1], qa[mt][kk], kf[2], kf[3]);
+          mma_bf16(s[mt][2 * jp], qa[mt][kQInRegs ? kk : 0], kf[0], kf[1]);
+          mma_bf16(s[mt][2 * jp + 1], qa[mt][kQInRegs ? kk : 0], kf[2], kf[3]);
         }
       }
     }
@@ -547,7 +562,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(). The wrapper has
-// checked shapes, dtypes, contiguity and alignment; hd is 16, 32, 64 or 128,
+// checked shapes, dtypes, contiguity and alignment; hd is 16, 32, 64, 128 or
+// 192,
 // Sk >= 1, and causal only where Sk == S.
 // bfloat16 inputs run the tensor-core kernel, float32 inputs the CUDA-core
 // kernel. `lse` is a float32 (B,H,S) buffer for each row's log-sum-exp, or
@@ -564,6 +580,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 32: return launch<32>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
     case 64: return launch<64>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
     case 128: return launch<128>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
+    case 192: return launch<192>(q, k, v, o, l, B, S, Sk, H, KV, c, bf, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

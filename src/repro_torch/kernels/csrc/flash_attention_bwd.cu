@@ -69,7 +69,7 @@
 //   * dK/dV: one block of 4 warps per (b, kv head, 64-key tile), each warp
 //     16 keys, whose dK and dV accumulators stay in registers for the whole
 //     walk over the G query heads of the kv head and their q tiles (64 rows,
-//     32 at hd 128 to keep the accumulators of S^T and dP^T small). K and V
+//     32 at hd 128 and 192 to keep the accumulators of S^T and dP^T small). K and V
 //     stay in shared memory; Q, dO, lse' and D stream through a two-stage
 //     cp.async ring. It forms S^T = K Q^T and dP^T = V dO^T, so P^T and
 //     dS^T come out of the accumulators in the A layout of dV += P^T dO and
@@ -81,10 +81,17 @@
 //     Masked entries are selected to 0, on the diagonal and ragged tiles
 //     only. Rows past S and keys past Sk are zero-filled by cp.async; their
 //     results are never stored. Outputs are staged through the warp's own
-//     rows of shared memory into 16-byte stores. hd 16, 32, 64, 128.
+//     rows of shared memory into 16-byte stores. hd 16, 32, 64, 128, 192.
+//   * hd 192 (nemotron-4-340b): dK and dV would take 192 accumulators a
+//     thread, dQ 96 beside S and dP. So two blocks share each tile, each
+//     owning half of the output's columns (col_split, the grid's x axis
+//     doubled) and forming S and dP over the whole head dim for itself: 15
+//     products where the gradient needs five (nine below hd 192). Only the
+//     first half's block writes D and lse'.
 //   * Registers (nvcc -O3 for sm_90a, as chip_smoke.py prints them): D/dQ
-//     240 at hd 128, 164 at hd 64, 128 at hd 32 and 16; dK/dV 243 at hd 128,
-//     229 at hd 64, 128 at hd 32 (4 bytes spilled), 87 at hd 16. Two blocks
+//     168 at hd 192 (8 bytes spilled), 240 at hd 128, 164 at hd 64, 128 at hd
+//     32 and 16; dK/dV 218 at hd 192, 243 at hd 128, 229 at hd 64, 128 at hd
+//     32 (4 bytes spilled), 87 at hd 16. Two blocks
 //     of 4 warps fit an SM at hd 128.
 //
 // float32: `attn_bwd_dq_f32_kernel`, then `attn_bwd_dkdv_f32_kernel`, on CUDA
@@ -103,7 +110,8 @@
 //     64 x 64 tile, writes P and dS to shared memory, and accumulates P^T dO
 //     and dS^T Q.
 //   * Tiles are float32 in shared memory with odd row pitches (hd + 1, 65),
-//     so sixteen rows read at one column fall in sixteen banks.
+//     so sixteen rows read at one column fall in sixteen banks. At hd 192
+//     the four tiles take 226 KB of shared memory a block, one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -413,10 +421,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBT = 64;  // q rows of a D/dQ block, keys of a dK/dV block and of a k tile
 
-// q rows of a dK/dV q tile: 32 at hd 128 keeps S^T and dP^T at 16
-// accumulators each beside the 128 of dK and dV
+// q rows of a dK/dV q tile: 32 at hd 128 and 192 keeps S^T and dP^T at 16
+// accumulators each beside the 128 (96 at hd 192, col_split) of dK and dV
 template <int HD>
-__host__ __device__ constexpr int dkdv_qrows() { return HD == 128 ? 32 : 64; }
+__host__ __device__ constexpr int dkdv_qrows() { return HD >= 128 ? 32 : 64; }
+
+// blocks that share one tile's output columns: two at hd 192, each owning
+// half of dQ's (or of dK's and dV's) columns and forming S and dP over the
+// whole head dim for itself, so that its accumulators stay at the size of
+// hd 96's
+template <int HD>
+__host__ __device__ constexpr int col_split() { return HD > 128 ? 2 : 1; }
 
 template <int HD>
 constexpr int dq_bf16_smem_bytes() {  // Q, dO, two stages of K and V
@@ -436,9 +451,10 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
     bf16* __restrict__ dq, int S, int Sk, int H, int KV, float scale, bool causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
-  constexpr int kSteps = HD / 16;  // k steps of Q K^T; pairs of 8-column tiles of dQ
+  constexpr int NCOL = HD / col_split<HD>();  // dQ columns of the block
+  constexpr int kSteps = HD / 16;  // k steps of Q K^T
   constexpr int kNT = kBT / 8;     // 8-key tiles of a k tile
-  constexpr int kDT = HD / 8;      // 8-column tiles of dQ
+  constexpr int kDT = NCOL / 8;    // 8-column tiles of the block's dQ
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBT][P]
   bf16* dos = qs + kBT * P;                      // [kBT][P]
   bf16* ks = dos + kBT * P;                      // [2][kBT][P]
@@ -446,7 +462,8 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
 
   const int n_qt = (S + kBT - 1) / kBT;
   const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.z) : blockIdx.z;
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / col_split<HD>(), b = blockIdx.y;
+  const int c0 = (blockIdx.x % col_split<HD>()) * NCOL;  // the block's first dQ column
   const int kvh = h / (H / KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -521,7 +538,7 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
           Dr[r] = pd[r] / l[r];
           ml[r] -= log2f(l[r]);
         }
-        if (t == 0 && row < S) {
+        if (c0 == 0 && t == 0 && row < S) {
           D_out[row] = Dr[r];
           lse2_out[row] = -ml[r] * kLn2;
         }
@@ -590,9 +607,9 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
           a[2 * half + 1] = pack_bf16(sj[2] * (dj[2] - Dr[1]), sj[3] * (dj[3] - Dr[1]));
         }
 #pragma unroll
-        for (int np = 0; np < kSteps; ++np) {
+        for (int np = 0; np < kDT / 2; ++np) {
           uint32_t kf[4];  // B fragments of dQ's column tiles 2 np and 2 np + 1
-          ldmatrix_x4_trans(kf, kst + 16 * kk * P + a_off + 16 * np);
+          ldmatrix_x4_trans(kf, kst + 16 * kk * P + a_off + c0 + 16 * np);
           mma_bf16(acc[2 * np], a, kf[0], kf[1]);
           mma_bf16(acc[2 * np + 1], a, kf[2], kf[3]);
         }
@@ -611,12 +628,12 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
         __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
   }
   __syncwarp();
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = NCOL / 8;
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks, d0 = (c % kChunks) * 8;
     if (row0 + r < S)
-      *reinterpret_cast<uint4*>(dq + ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD + d0) =
-          *reinterpret_cast<const uint4*>(ow + r * P + d0);
+      *reinterpret_cast<uint4*>(dq + ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD +
+                                c0 + d0) = *reinterpret_cast<const uint4*>(ow + r * P + d0);
   }
 }
 
@@ -630,9 +647,10 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int P = tc_pitch<HD>();
   constexpr int QR = dkdv_qrows<HD>();  // q rows of a q tile
-  constexpr int kSteps = HD / 16;       // k steps of K Q^T; pairs of 8-column tiles of dK, dV
+  constexpr int NCOL = HD / col_split<HD>();  // dK and dV columns of the block
+  constexpr int kSteps = HD / 16;       // k steps of K Q^T
   constexpr int kNT = QR / 8;           // 8-row tiles of a q tile
-  constexpr int kDT = HD / 8;           // 8-column tiles of dK and dV
+  constexpr int kDT = NCOL / 8;         // 8-column tiles of the block's dK and dV
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBT][P]
   bf16* vs = ks + kBT * P;                       // [kBT][P]
   bf16* qs = vs + kBT * P;                       // [2][QR][P]
@@ -640,7 +658,8 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
   float* ls = reinterpret_cast<float*>(dos + 2 * QR * P);  // [2][QR]: -(lse' log2 e)
   float* Ds = ls + 2 * QR;                                  // [2][QR]
 
-  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int kvh = blockIdx.x / col_split<HD>(), b = blockIdx.y, kt = blockIdx.z;
+  const int c0 = (blockIdx.x % col_split<HD>()) * NCOL;  // the block's first dK, dV column
   const int G = H / KV;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -775,10 +794,10 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
           sa[2 * half + 1] = pack_bf16(sj[2], sj[3]);
         }
 #pragma unroll
-        for (int np = 0; np < kSteps; ++np) {
+        for (int np = 0; np < kDT / 2; ++np) {
           uint32_t of[4], qf[4];  // B fragments of column tiles 2 np and 2 np + 1
-          ldmatrix_x4_trans(of, dost + 16 * kk * P + a_off + 16 * np);
-          ldmatrix_x4_trans(qf, qst + 16 * kk * P + a_off + 16 * np);
+          ldmatrix_x4_trans(of, dost + 16 * kk * P + a_off + c0 + 16 * np);
+          ldmatrix_x4_trans(qf, qst + 16 * kk * P + a_off + c0 + 16 * np);
           mma_bf16(dva[2 * np], pa, of[0], of[1]);
           mma_bf16(dva[2 * np + 1], pa, of[2], of[3]);
           mma_bf16(dka[2 * np], sa, qf[0], qf[1]);
@@ -808,11 +827,11 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
         __floats2bfloat162_rn(dva[n][2], dva[n][3]);
   }
   __syncwarp();
-  constexpr int kChunks = HD / 8;
+  constexpr int kChunks = NCOL / 8;
   for (int c = lane; c < 16 * kChunks; c += 32) {
     const int r = c / kChunks, d0 = (c % kChunks) * 8;
     if (kw + r < Sk) {
-      const int64_t off = kv_off + static_cast<int64_t>(kw + r) * kv_stride + d0;
+      const int64_t off = kv_off + static_cast<int64_t>(kw + r) * kv_stride + c0 + d0;
       *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(kout + r * P + d0);
       *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(vout + r * P + d0);
     }
@@ -867,7 +886,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
   cudaError_t err =
       cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(H, B, n_qt), kTcThreads, dq_bytes, stream>>>(
+  dqk<<<dim3(H * col_split<HD>(), B, n_qt), kTcThreads, dq_bytes, stream>>>(
       q_, k_, v_, do_, lse, scratch, static_cast<bf16*>(dq), S, Sk, H, KV, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -876,7 +895,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
   constexpr int dkdv_bytes = dkdv_bf16_smem_bytes<HD>();
   err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<dim3(KV, B, n_kt), kTcThreads, dkdv_bytes, stream>>>(
+  dkdv<<<dim3(KV * col_split<HD>(), B, n_kt), kTcThreads, dkdv_bytes, stream>>>(
       q_, k_, v_, do_, scratch, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, KV,
       scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -896,7 +915,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 
 // Launches the D/dQ kernel, then the dK/dV kernel, on `stream` and returns
 // the first CUDA error, or 0. The wrapper has checked shapes, dtypes,
-// contiguity and alignment; hd is 16, 32, 64 or 128; Sk >= 1, and causal
+// contiguity and alignment; hd is 16, 32, 64, 128 or 192; Sk >= 1, and causal
 // only where Sk == S; `scratch` is float32 (2, B, H, S): D, then (bf16 only)
 // lse'; dq, dk, dv have the inputs' dtype and shapes, and every element of
 // them is written.
@@ -914,6 +933,7 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     case 32: return launch<32>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
     case 64: return launch<64>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
     case 128: return launch<128>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
+    case 192: return launch<192>(q, k, v, dout, l, sc, dq, dk, dv, B, S, Sk, H, KV, c, bf, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

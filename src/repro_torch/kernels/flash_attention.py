@@ -64,7 +64,7 @@ from repro_torch.kernels import _build
 
 # attention chunk size for memory-bounded (flash-style) prefill
 ATTN_CHUNK = 512
-HEAD_DIMS = (16, 32, 64, 128)   # 16: the smoke configs' heads
+HEAD_DIMS = (16, 32, 64, 128, 192)   # 16: the smoke configs' heads; 192: nemotron-4-340b
 DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches made by flash_attention_cuda and flash_attention_bwd_cuda

@@ -192,7 +192,7 @@ def row_err(got, ref):
 @pytest.mark.parametrize("B,S,H,KV,hd,causal", [
     (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 8, 2, 128, True),
     (2, 96, 2, 1, 64, False), (1, 1, 2, 2, 32, True), (1, 1024, 2, 2, 64, True),
-    (2, 64, 4, 4, 16, True)])
+    (2, 64, 4, 4, 16, True), (1, 130, 12, 1, 192, True), (2, 96, 4, 2, 192, False)])
 def test_flash_attention_kernel_matches_plain(no_tf32, dtype, tol, B, S, H, KV, hd, causal):
     q, k, v = attention_inputs(S + hd, B, S, H, KV, hd, dtype, no_tf32)
     before = fa.launches
@@ -319,7 +319,8 @@ def grad_row_err(got, ref, scale):
 @pytest.mark.parametrize("B,S,H,KV,hd,causal", [
     (1, 256, 4, 2, 64, True), (2, 200, 4, 4, 32, True), (1, 130, 8, 2, 128, True),
     (2, 96, 2, 1, 64, False), (1, 1, 2, 2, 32, True), (2, 64, 4, 4, 16, True),
-    (1, 384, 4, 2, 16, False), (2, 200, 4, 2, 128, False)])
+    (1, 384, 4, 2, 16, False), (2, 200, 4, 2, 128, False), (1, 130, 12, 1, 192, True),
+    (2, 96, 4, 2, 192, False)])
 def test_flash_attention_backward_matches_plain(no_tf32, dtype, B, S, H, KV, hd, causal):
     q, k, v = attention_inputs(S + hd, B, S, H, KV, hd, dtype, no_tf32)
     do = attention_inputs(S, B, S, H, KV, hd, dtype, no_tf32)[0]
@@ -530,7 +531,7 @@ def cross_inputs(seed, B, S, Sk, H, KV, hd, dtype, device):
 @pytest.mark.parametrize("B,S,Sk,H,KV,hd", [
     (8, 2048, 512, 16, 16, 64), (2, 77, 300, 6, 2, 64), (8, 1, 512, 16, 16, 64),
     (2, 40, 1, 4, 2, 32), (2, 512, 512, 16, 16, 64), (1, 130, 70, 8, 2, 128),
-    (2, 33, 65, 4, 4, 16)])
+    (2, 33, 65, 4, 4, 16), (1, 130, 70, 8, 2, 192)])
 def test_flash_attention_kernel_takes_keys_of_their_own_length(no_tf32, dtype, tol, B, S,
                                                                Sk, H, KV, hd):
     q, k, v = cross_inputs(S + Sk, B, S, Sk, H, KV, hd, dtype, no_tf32)
@@ -584,7 +585,8 @@ def test_cross_attention_raises_where_a_gradient_is_wanted(no_tf32):
     (2, 40, 1, 4, 2, 32),         # one key
     (8, 1, 512, 16, 16, 64),      # one query
     (8, 512, 512, 16, 16, 64),    # the encoder's non-causal self-attention
-    (1, 130, 70, 8, 2, 128)])     # hd 128, where dK/dV takes 32 q rows a step
+    (1, 130, 70, 8, 2, 128),      # hd 128, where dK/dV takes 32 q rows a step
+    (1, 130, 70, 8, 2, 192)])     # hd 192, two blocks a tile, each half the columns
 def test_flash_attention_backward_takes_keys_of_their_own_length(no_tf32, dtype, B, S, Sk, H,
                                                                  KV, hd):
     """K2's backward, non-causal, against the plain version's autograd

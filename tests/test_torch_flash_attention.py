@@ -209,3 +209,49 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_bwd_cuda(q, q, q, q, lse)
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention_bwd_cuda(q, q, q, q[:, :4], lse)
+
+
+# ---------------------------------------------------------------------------
+# head dim 192 (nemotron-4-340b: d 18,432 over 96 heads), which the Pallas
+# kernel takes like any other and the CUDA kernels take since hd 192 was
+# added to HEAD_DIMS
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_interpret_at_head_dim_192(dtype, causal):
+    (jq, q), (jk, k), (jv, v) = inputs(192, 1, 128, 4, 1, 192, dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    check(got, pallas_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64,
+                            interpret=True), dtype)
+    check(got, jref.flash_attention_ref(jq, jk, jv, causal=causal), dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_gradient_matches_jax_grad_at_head_dim_192(causal):
+    test_plain_gradient_matches_jax_grad(1, 130, 4, 1, 192, causal)
+
+
+def test_kernel_ops_take_head_dim_192_on_fake_tensors():
+    """The ops' fakes share the kernels' checks (``_kernel_takes``), so a
+    fake-tensor trace of nemotron-4-340b reaches them at hd 192: the forward
+    (with and without the log-sum-exp) and the backward give the plain
+    version's shapes and dtypes, causal and with keys of their own length."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    B, S, H, KV, hd = 2, 40, 4, 2, 192
+    for dtype in (torch.float32, torch.bfloat16):
+        for Sk, causal in ((S, True), (24, False)):
+            with FakeTensorMode():
+                q, do = (torch.empty((B, S, H, hd), dtype=dtype, device="cuda")
+                         for _ in range(2))
+                k, v = (torch.empty((B, Sk, KV, hd), dtype=dtype, device="cuda")
+                        for _ in range(2))
+                o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+                grads = fa.flash_attention_bwd_cuda(q, k, v, do, lse, causal=causal)
+                got = [o, lse, fa.flash_attention_cuda(q, k, v, causal=causal), *grads]
+            want = [(q.shape, dtype), ((B, H, S), torch.float32), (q.shape, dtype),
+                    (q.shape, dtype), (k.shape, dtype), (v.shape, dtype)]
+            assert [(tuple(t.shape), t.dtype) for t in got] == \
+                [(tuple(s), d) for s, d in want]
+            assert all(t.device.type == "cuda" for t in got)

@@ -31,7 +31,16 @@ def test_port_sources_import_no_jax_and_no_repro():
                    "optim/schedule", "optim/grad_compress", "data/pipeline",
                    "coord/ckpt_consensus", "coord/grad_quorum", "coord/membership",
                    "checkpoint/manager", "tree", "launch/dryrun", "launch/roofline",
-                   "launch/op_analysis"):
+                   "launch/op_analysis", "core/simulator", "core/rsm",
+                   "core/protocol_base", "core/fastpath", "core/slowpath",
+                   "core/object_manager", "core/woc", "core/cabinet", "core/epaxos",
+                   "core/leases", "core/reassign", "core/runner", "scenario/build",
+                   "scenario/registry", "scenario/spec", "scenario/workloads",
+                   "faults/schedule", "faults/nemesis", "shard/shard_map", "shard/gate",
+                   "shard/groupview", "shard/router", "shard/runner", "shard/parallel",
+                   "obs/spans", "obs/metrics", "obs/export", "obs/critical_path",
+                   "verify/history", "verify/linearizability", "verify/recovery",
+                   "coding/rs", "coding/policy", "coding/manager"):
         assert f"repro_torch/{module}.py" in names
     bad = [(path.relative_to(ROOT).as_posix(), mod)
            for path in PORT_FILES for mod in imported_modules(path)
@@ -50,6 +59,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.optim, repro_torch.data, repro_torch.coord\n"
         "import repro_torch.checkpoint, repro_torch.tree\n"
         "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+        "import repro_torch.core.runner, repro_torch.scenario, repro_torch.shard\n"
+        "import repro_torch.faults, repro_torch.verify, repro_torch.obs\n"
+        "import repro_torch.coding, repro_torch.core.leases, repro_torch.core.reassign\n"
+        "import repro_torch.coding.manager, repro_torch.shard.parallel\n"
         "import chip_smoke\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('repro', 'jaxlib'))\n"
