@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 Hopper GPU: builds the kernels, holds each against its plain PyTorch version,
-drives the weighted-quorum data plane, WOC's protocol simulator on the
-card's host, zamba2-1.2b, qwen3-1.7b,
+drives the weighted-quorum data plane, WOC's protocol simulator and its
+served transport on the card's host, zamba2-1.2b, qwen3-1.7b,
 granite-moe-3b-a800m and seamless-m4t-medium serving, and qwen3-1.7b,
 zamba2-1.2b, granite-moe-3b-a800m and seamless-m4t-medium training at full
 size, then qwen3-1.7b training and zamba2-1.2b serving sharded on a 1x1
@@ -14,9 +14,10 @@ Usage (from the root of a checkout, on a machine with a CUDA GPU and nvcc):
     python3 chip_smoke.py [--seed N] [--train-steps N]
 
 Phases, each of which raises on failure so that the script exits non-zero:
-  1. the card's name and power limit (nvidia-smi), and the kernel build (one
-     nvcc per source, all started together), with each kernel's registers
-     and spills as one JSON line {"resource_usage": ...};
+  1. the card's name and power limit (nvidia-smi), the versions of Python,
+     torch, CUDA, nvcc and the driver as {"toolchain": ...}, and the kernel
+     build (one nvcc per source, all started together), with each kernel's
+     registers and spills as one JSON line {"resource_usage": ...};
   2. K1 (quorum commit) against its plain version on the card, on ragged op
      counts, n from 1 to 1024 with every edge of the kernel's regimes, tied
      arrivals, rows without votes, with and without an explicit threshold and
@@ -46,6 +47,15 @@ Phases, each of which raises on failure so that the script exits non-zero:
      state-machine safety, with the reference's verdict; serial only (the
      parallel shard runner forks, which a process with CUDA must not); the
      host CPU's model beside the card;
+     then the served path, on the card's host and launching nothing on the
+     card: WOC's transport (``repro_torch.transport``), one process per
+     replica and per client over localhost sockets, runs
+     examples/scenarios/served_kv.json, the §5.1 deployment (40,000
+     writes), and a crash of replica 0 restarted in recovery mode, each
+     stage waited for on the sockets (``launch.served.crash_restart``);
+     every op committed, every history linearizable, the queues bounded;
+     with the codec's branch (msgpack or JSON) and the processes' start-up
+     seconds, as {"served_path": ...};
   4. K2 (flash attention) and K3 (SSD intra-chunk) against their plain
      versions on the card, ragged edges of their tensor-core tiles included,
      and K2 with keys of their own length (cross-attention at the seamless
@@ -140,9 +150,11 @@ Phases, each of which raises on failure so that the script exits non-zero:
      replayed CUDA graph of 10 calls (``ms``; K1's from torch.profiler) and
      from torch.profiler (``kernel_ms``), the time per call through the
      wrapper and of the plain version (CUDA events over back-to-back calls,
-     so host overhead included); K2 and its backward also at the seamless
-     cross-attention shape and at one tensor-parallel shard of
-     nemotron-4-340b (4, 2048, 12, 1, 192), causal;
+     so host overhead included), the library call's from a replayed graph
+     too (SDPA's backward captured on its forward's stream), and the card's
+     SM clock sampled through NVML while each shape was timed; K2 and its
+     backward also at the seamless cross-attention shape and at one
+     tensor-parallel shard of nemotron-4-340b (4, 2048, 12, 1, 192), causal;
  12. last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -191,11 +203,15 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.data import DataConfig  # noqa: E402
 from repro_torch.launch import dryrun, roofline, serve, train  # noqa: E402
 from repro_torch.launch.mesh import make_mesh_for  # noqa: E402
+from repro_torch.launch.served import crash_restart, start_up_s  # noqa: E402
 from repro_torch.launch.shardings import make_rules  # noqa: E402
 from repro_torch.models import family  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw  # noqa: E402
+from repro_torch.transport import ClusterConfig, run_served  # noqa: E402
+from repro_torch.transport import codec as served_codec  # noqa: E402
+from repro_torch.transport.net import READ_RESULTS_CAP  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 # Main path: the largest cluster of benchmarks/bench_server_scaling.py
@@ -339,6 +355,24 @@ NEMESIS_VERDICT = ((True, "ok (3000 ops linearizable per object)"),
                    (True, "ok (3000 committed ops verified)"))
 PROTOCOL_PHASE_LIMIT_S = 60.0
 
+# The served path (WOC's transport: one process per replica and per client
+# over localhost sockets, on the card's host): the served deployment of
+# examples/scenarios/served_kv.json; the protocol path's §5.1 deployment
+# (RunConfig's defaults: 5 replicas, 2 clients, batch 10, 5 in flight,
+# 40,000 writes of the 90/5/5 mix) served; and the crash and restart of
+# replica 0 at tests/test_transport.py's configuration, its stages waited
+# for on the sockets (``launch.served.crash_restart``).
+SERVED_CONFIG = Path(__file__).resolve().parent / "examples" / "scenarios" / "served_kv.json"
+SERVED_PAPER = dict(n_replicas=5, n_clients=2, batch_size=10, max_inflight=5,
+                    total_ops=40_000, reads_fraction=0.0, p_common=0.05, p_hot=0.05,
+                    n_hot=4, time_limit_s=120.0, trace=False)
+SERVED_CRASH = dict(n_replicas=5, n_clients=2, total_ops=2400, batch_size=8, seed=13,
+                    time_limit_s=60.0, trace=False)
+# the phase took 91-104 s beside an H100 80GB HBM3 (host: 8 processors of
+# family 6 model 207), of which each cluster's start-up (torch's import in
+# five processes at once) 9-12.5 s
+SERVED_PHASE_LIMIT_S = 180.0
+
 HBM_BYTES_PER_S = roofline.HBM_BW
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = roofline.PEAK_FLOPS
@@ -371,6 +405,20 @@ def device_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def toolchain() -> dict:
+    """The versions this run was built and run with: Python, torch, the CUDA
+    torch was built for, nvcc's release line and the card's driver."""
+    nvcc = subprocess.run([_build.nvcc(), "--version"], check=True, capture_output=True,
+                          text=True, timeout=60).stdout
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return {"python": sys.version.split()[0], "torch": torch.__version__,
+            "torch_cuda": torch.version.cuda,
+            "nvcc": next(line for line in nvcc.splitlines() if "release" in line).strip(),
+            "driver": driver.strip().splitlines()[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -898,6 +946,107 @@ def protocol_path() -> dict:
     return out
 
 
+def hold_served(art, cfg, what, healthy: bool) -> dict:
+    """What tests/test_transport.py holds of a served run: every client
+    drained and every op committed, the history linearizable and the
+    artifacts verified, every channel's queue within its bound and the
+    reply tables within theirs; for a healthy cluster also the trace's
+    commit counters summing to the op count (when traced), every replica
+    applying every op, none recovering or isolated, no dropped frame and no
+    reconnect. Returns the run's row."""
+    r = art.result
+    if r.clients_done != cfg.n_clients or r.committed_ops != cfg.total_ops:
+        raise AssertionError(f"served {what}: {r.clients_done} of {cfg.n_clients} clients "
+                             f"drained, {r.committed_ops} of {cfg.total_ops} ops committed")
+    t0 = time.perf_counter()
+    linearizable = check_history_linearizable(r.history)
+    check_s = time.perf_counter() - t0
+    verified = verify_artifacts(art, check_rsm=False)
+    if not (linearizable[0] and verified[0]):
+        raise AssertionError(f"served {what}: {linearizable}, {verified}")
+    if healthy and cfg.trace:
+        by_path = sum(v for k, v in r.metrics["counters"].items()
+                      if k.startswith("ops_committed_total"))
+        if by_path != cfg.total_ops:
+            raise AssertionError(f"served {what}: commit counters sum to {by_path}")
+    if len(r.node_stats) != cfg.n_replicas:
+        raise AssertionError(f"served {what}: {len(r.node_stats)} replicas reported")
+    for ns in r.node_stats:
+        if max(ns["read_results"], ns["commit_log"]) > READ_RESULTS_CAP:
+            raise AssertionError(f"served {what}: replica {ns['node']}'s reply tables")
+        if healthy and (ns["applied"] != cfg.total_ops or ns["recovering"]
+                        or ns["isolated"]):
+            raise AssertionError(f"served {what}: replica {ns['node']} applied "
+                                 f"{ns['applied']}, recovering {ns['recovering']}, "
+                                 f"isolated {ns['isolated']}")
+        for ch in ns["channels"]:
+            if max(ch["queue_hwm"], ch["queue_len"]) > ch["max_queue"] or (
+                    healthy and (ch["dropped"] or ch["reconnects"])):
+                raise AssertionError(f"served {what}: replica {ns['node']}'s channel {ch}")
+    channels = [ch for ns in r.node_stats for ch in ns["channels"]]
+    return {"committed_ops": r.committed_ops, "clients_done": r.clients_done,
+            "makespan_s": r.makespan_s, "throughput_tx_s": r.throughput_tx_s,
+            "fast_path_frac": r.fast_path_frac, "linearizable": linearizable[0],
+            "check_s": check_s, "verdict": linearizable[1],
+            "dropped_frames": sum(ch["dropped"] for ch in channels),
+            "reconnects": sum(ch["reconnects"] for ch in channels)}
+
+
+def hold_crash_restart(art, cfg, stages) -> dict:
+    """``hold_served`` of the crash run, and what tests/test_transport.py
+    holds of it besides: replica 0 recovered with applied ops, and every
+    survivor's channel to it reconnected. Returns the run's row."""
+    row = hold_served(art, cfg, "crash_restart", healthy=False)
+    stats = {ns["node"]: ns for ns in art.result.node_stats}
+    redials = [next(c for c in stats[i]["channels"] if c["dst"] == 0)["reconnects"]
+               for i in range(1, cfg.n_replicas)]
+    if stats[0]["recovering"] or stats[0]["applied"] <= 0 or min(redials) < 1:
+        raise AssertionError(f"served crash_restart: replica 0 recovering "
+                             f"{stats[0]['recovering']}, applied {stats[0]['applied']}; "
+                             f"survivors' reconnects to it {redials}")
+    return {**row, "replica0_applied": stats[0]["applied"],
+            "survivor_reconnects_to_0": redials, "stages_s": stages}
+
+
+def served_path() -> dict:
+    """WOC's served transport (``repro_torch.transport``) on the card's host,
+    launching nothing on the card: the served_kv deployment, the §5.1
+    deployment over sockets, and replica 0 crashed and restarted; each run
+    held as tests/test_transport.py holds it. Its processes are started
+    with ``subprocess.Popen`` (fork and exec at once), which is safe after
+    CUDA is initialised."""
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    start_up = {"replica_import_s": start_up_s("repro_torch.transport.node_runner"),
+                "client_import_s": start_up_s("repro_torch.transport.client_driver")}
+    runs = {}
+    for name, cfg in (("served_kv", ClusterConfig.from_json(SERVED_CONFIG)),
+                      ("paper_5_1", ClusterConfig(**SERVED_PAPER))):
+        t1 = time.perf_counter()
+        art = run_served(cfg)
+        runs[name] = {"wall_s": time.perf_counter() - t1, "total_ops": cfg.total_ops,
+                      **hold_served(art, cfg, name, healthy=True)}
+    cfg = ClusterConfig(**SERVED_CRASH)
+    t1 = time.perf_counter()
+    art, stages = crash_restart(cfg)
+    wall_s = time.perf_counter() - t1
+    runs["crash_restart"] = {"wall_s": wall_s, "total_ops": cfg.total_ops,
+                             **hold_crash_restart(art, cfg, stages)}
+    start_up["cluster_start_s"] = stages["start_s"]
+    start_up["replica_restart_s"] = stages["restart_s"]
+    counts = launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the served path launched kernels: {counts}")
+    out = {"codec": "msgpack" if served_codec.msgpack is not None else "json",
+           "start_up_s": start_up, "runs": runs, "host_cpu": host_cpu(),
+           "card": device_line(), "launches": counts, "phase_s": time.perf_counter() - t0}
+    if out["phase_s"] > SERVED_PHASE_LIMIT_S:
+        raise AssertionError(f"the served path took {out['phase_s']:.1f} s, over "
+                             f"{SERVED_PHASE_LIMIT_S} s")
+    print(json.dumps({"served_path": out}))
+    return out
+
+
 def event_ms(fn, iters: int) -> float:
     """Time per call on the device's clock (CUDA events) over back-to-back
     calls; host-bound when a call's host work outlasts its kernels."""
@@ -914,20 +1063,22 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 10) -> float:
+def graph_ms(fn, iters: int = 10, stream=None) -> float:
     """Device time per call on the device's clock (CUDA events) over one
     replay of a CUDA graph of ``iters`` back-to-back calls: the kernels run
     with no host time between them, which neither the profiler's
     attribution nor the events around eager calls (``event_ms``) can
-    promise."""
-    side = torch.cuda.Stream()
+    promise. The graph is captured on ``stream`` (a new one by default); a
+    backward is captured on the stream its forward ran on, where autograd
+    runs it."""
+    side = stream if stream is not None else torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(3):
             fn(i)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i)
     graph.replay()
@@ -957,7 +1108,12 @@ def device_ms(fn, iters: int) -> float | None:
 
 def time_k1(rng, ops_, n, members: bool) -> dict:
     """Kernel and plain times at one shape, cycling through enough input
-    copies to exceed L2, so that inputs come from device memory."""
+    copies to exceed L2, so that inputs come from device memory, with the
+    card's SM clock while they were taken."""
+    return clocked(lambda: time_k1_shape(rng, ops_, n, members))
+
+
+def time_k1_shape(rng, ops_, n, members: bool) -> dict:
     _, arrivals, _ = make_steps(rng, 4 * ops_, ops_, n, 1)
     ranks = rng.permuted(np.tile(np.arange(n), (ops_, 1)), axis=1)
     weights = W.geometric_weights_np(n, W.solve_steepness(n, 1))[ranks]
@@ -1975,6 +2131,19 @@ class StepProbe:
         return rec
 
 
+CLOCK_KEYS = ("sm_mhz_min", "sm_mhz_mean", "power_w_max", "throttle_reasons", "samples")
+
+
+def clocked(measure) -> dict:
+    """``measure()``'s readings, with the card's SM clock, power and throttle
+    reasons sampled through NVML while it ran (``StepProbe``)."""
+    with StepProbe() as probe:
+        probe.begin()
+        out = measure()
+        seen = probe.end()
+    return {**out, "sm_clock": {k: seen[k] for k in CLOCK_KEYS if k in seen}}
+
+
 def model_flops(cfg, tokens) -> tuple[float, str]:
     """6 N D: the FLOP of a train step over ``tokens`` tokens, and how they
     were counted. A MoE token passes through its top-k experts only
@@ -2581,8 +2750,12 @@ def time_k2_backward(gen, shape=K2_TRAIN_SHAPE) -> dict:
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = fa.flash_attention_plain(*leaves, causal=True)
     lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        *lib_leaves, is_causal=True, enable_gqa=True)
+    lib_stream = torch.cuda.Stream()          # autograd runs the backward here
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_leaves, is_causal=True, enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(lib_stream)
     lib_do = do.transpose(1, 2).contiguous()
 
     def kernel(i):
@@ -2603,7 +2776,7 @@ def time_k2_backward(gen, shape=K2_TRAIN_SHAPE) -> dict:
     # q, do, dq and k, v, dk, dv once each in bf16, lse in float32
     moved = 2 * (3 * B * S * H * hd + 4 * B * S * KV * hd) + 4 * B * H * S
     return timing("flash_attention_bwd", list(shape), kernel, plain, library,
-                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S, library_stream=lib_stream,
                   max_abs_err=max(errors[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
                   **errors, library_max_abs_err=lib_err)
 
@@ -2619,8 +2792,12 @@ def time_k2_backward_cross(gen) -> dict:
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     plain_out = fa.flash_attention_plain(*leaves, causal=False)
     lib_leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        *lib_leaves, is_causal=False, enable_gqa=True)
+    lib_stream = torch.cuda.Stream()          # autograd runs the backward here
+    lib_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(lib_stream):
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *lib_leaves, is_causal=False, enable_gqa=True)
+    torch.cuda.current_stream().wait_stream(lib_stream)
     lib_do = do.transpose(1, 2).contiguous()
 
     def kernel(i):
@@ -2641,28 +2818,35 @@ def time_k2_backward_cross(gen) -> dict:
     # q, do, dq and k, v, dk, dv once each in bf16, lse in float32
     moved = 2 * (3 * B * S * H * hd + 4 * B * Sk * KV * hd) + 4 * B * H * S
     return timing("flash_attention_bwd", list(K2_CROSS_SHAPE), kernel, plain, library,
-                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S,
+                  ops_ / BF16_OPS_PER_S, moved / HBM_BYTES_PER_S, library_stream=lib_stream,
                   max_abs_err=max(errors[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
                   **errors, library_max_abs_err=lib_err)
 
 
-def library_times(library) -> dict:
-    """The library call's device time, or its time per call (CUDA events)
-    where the profiler records no device time for it."""
+def library_times(library, stream=None) -> dict:
+    """The library call's device time from a replayed CUDA graph, as the
+    kernel's ``ms`` (``graph_ms``, captured on ``stream``), beside the
+    profiler's reading and its time per call (CUDA events)."""
     if library is None:
         return {"library_ms": None}
-    call_ms = event_ms(library, 10)
-    device = device_ms(library, 10)
-    return {"library_ms": device if device is not None else call_ms,
-            "library_timed_by": "profiler" if device is not None else "events",
-            "library_call_ms": call_ms}
+    return {"library_ms": graph_ms(library, stream=stream), "library_timed_by": "graph",
+            "library_profiler_ms": device_ms(library, 10),
+            "library_call_ms": event_ms(library, 10)}
 
 
-def timing(name, shape, kernel, plain, library, ops_s, bytes_s, readings=1, **extra) -> dict:
+def timing(name, shape, kernel, plain, library, ops_s, bytes_s, readings=1,
+           library_stream=None, **extra) -> dict:
     """Times of ``kernel``, ``plain`` and ``library`` and the bound: the
     kernel's device time from a replayed CUDA graph (``graph_ms``) and from
     the profiler, which with ``readings`` > 1 is the median of that many
-    readings of 30 calls each, all of which are recorded."""
+    readings of 30 calls each, all of which are recorded; with the card's
+    SM clock while they were taken (``clocked``)."""
+    return clocked(lambda: timings(name, shape, kernel, plain, library, ops_s, bytes_s,
+                                   readings, library_stream, **extra))
+
+
+def timings(name, shape, kernel, plain, library, ops_s, bytes_s, readings,
+            library_stream, **extra) -> dict:
     read = [device_ms(kernel, 30) for _ in range(readings)]
     kernel_ms = None if None in read else statistics.median(read)
     return {"name": name, "shape": shape,
@@ -2672,7 +2856,7 @@ def timing(name, shape, kernel, plain, library, ops_s, bytes_s, readings=1, **ex
             **({"kernel_ms_readings": read} if readings > 1 else {}),
             "call_ms": event_ms(kernel, 10), "plain_ms": event_ms(plain, 3),
             "plain_device_ms": device_ms(plain, 3),
-            **library_times(library),
+            **library_times(library, library_stream),
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "operations_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s, **extra}
@@ -2691,6 +2875,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     card = device_line()
     print(card)
+    print(json.dumps({"toolchain": toolchain()}))
     t0 = time.perf_counter()
     built = _build.build()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
@@ -2701,6 +2886,7 @@ def main() -> int:
     check_small_slice(rng)
     summary = main_path(rng)
     protocol_path()
+    served_path()
 
     torch.backends.cuda.matmul.allow_tf32 = False     # plain sides in full float32
     torch.backends.cudnn.allow_tf32 = False

@@ -55,9 +55,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
-from torch.distributed.tensor import DTensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
@@ -145,8 +145,12 @@ def _bwd_launcher():
 
 def no_dtensor(name: str, *tensors) -> None:
     """Raise for a DTensor: the kernels and their plain versions take each
-    rank's local shards (``local_map``), never a DTensor."""
-    if any(isinstance(t, DTensor) for t in tensors):
+    rank's local shards (``local_map``), never a DTensor. No DTensor exists
+    before ``torch.distributed.tensor`` is imported, and this module does not
+    import it: it takes seconds, which every process of the served cluster
+    (``repro_torch.transport``) would pay at start-up."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
         raise TypeError(f"{name}: got a DTensor; call it on local shards (local_map)")
 
 

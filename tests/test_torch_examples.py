@@ -6,11 +6,15 @@ once on the CPU as a user runs it:
   ``examples/quickstart.py`` (the JAX package);
 * ``serve_lm_torch.py``: the smoke qwen3 served, prefill plus greedy decode;
 * ``train_lm_torch.py``: ``--tiny --steps 3`` with ``GradQuorum``'s commit
-  masks and the async checkpoint, then ``--resume`` from it to step 5.
+  masks and the async checkpoint, then ``--resume`` from it to step 5;
+* ``woc_kv_store_torch.py``: acts one to three (simulated) print the lines of
+  ``examples/woc_kv_store.py``; act four (served over sockets, wall-clock
+  times) commits every op, drains both clients and checks the history.
 """
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -62,7 +66,27 @@ def test_train_lm_torch_and_resume(tmp_path):
     assert "resumed from step 3" in out and "step    4 loss" in out
 
 
-@pytest.mark.parametrize("name", ["quickstart_torch", "serve_lm_torch", "train_lm_torch"])
+def served_act(out: str) -> tuple[list, list]:
+    """The lines of acts one to three, and act four's lines."""
+    lines = out.splitlines()
+    start = next(i for i, line in enumerate(lines) if line.startswith("serving over asyncio"))
+    return lines[:start], lines[start:]
+
+
+def test_woc_kv_store_torch_equals_jax():
+    got, served = served_act(run("examples/woc_kv_store_torch.py"))
+    want, ref_served = served_act(run("examples/woc_kv_store.py"))
+    assert got == want
+    assert "state-machine safety across replicas: OK" in got
+    committed = re.compile(r"  committed (\d+) ops in [0-9.]+s wall-clock")
+    assert [committed.match(line).group(1) for line in (served[1], ref_served[1])] == \
+        ["800", "800"]
+    assert served[2] == ref_served[2] == \
+        "  2/2 client processes drained; real history checked linearizable: OK"
+
+
+@pytest.mark.parametrize("name", ["quickstart_torch", "serve_lm_torch", "train_lm_torch",
+                                  "woc_kv_store_torch"])
 def test_twins_import_no_jax(name):
     """The twins stand alone: they import the port, never JAX or ``repro``."""
     tree = ast.parse((ROOT / "examples" / f"{name}.py").read_text())
