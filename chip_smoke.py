@@ -166,7 +166,9 @@ import ctypes
 import gc
 import json
 import math
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -379,6 +381,7 @@ BF16_OPS_PER_S = roofline.PEAK_FLOPS
 TF32_OPS_PER_S = 495e12
 FP64_OPS_PER_S = 67e12              # float64 on the tensor cores
 L2_BYTES = 50 * 2**20
+GRAPH_READINGS = 5                  # a kernel's ms: the median of this many graph_ms
 
 
 def resource_usage() -> dict:
@@ -1228,6 +1231,27 @@ def check_k2_cases(gen, cases) -> dict:
     return errors
 
 
+def k2_tile_edge_cases() -> list:
+    """bf16 cases (shape, dtype, causal) at the edges of the wgmma kernels'
+    tiles: forward blocks of 192 q rows up to hd 64 (128 above) and k tiles of
+    128 keys (64 at hd 192); the backward's D/dQ blocks of 128 rows with k
+    tiles of 128 keys up to hd 64 (64 above), and its dK/dV blocks of 128 keys
+    (64 at hd 192) with q tiles of 64 rows. S and Sk one below and above
+    those sizes, one row, GQA 16 at hd 64 (qwen3-moe-235b's 64 heads on 4 kv
+    heads, which no path runs yet) and hd 192 ragged; shapes of six entries
+    are (B, S, H, KV, hd, Sk), non-causal."""
+    bf16 = torch.bfloat16
+    cases = [((1, S_, 4, 2, 64), bf16, causal) for S_ in (63, 65, 127, 129, 191, 193)
+             for causal in (True, False)]
+    cases += [((1, S_, 8, 2, 128), bf16, causal) for S_ in (63, 65, 127, 129)
+              for causal in (True, False)]
+    cases += [((1, 129, 64, 4, 64), bf16, True), ((1, 1, 64, 4, 64), bf16, True),
+              ((1, 257, 4, 1, 192), bf16, True), ((1, 65, 4, 1, 192), bf16, False)]
+    own = [(1, 129, 4, 2, 64, 127), (1, 191, 4, 2, 64, 129), (1, 127, 64, 4, 64, 65),
+           (1, 65, 4, 2, 128, 63), (1, 127, 8, 2, 128, 129), (1, 130, 4, 1, 192, 65)]
+    return cases + [(shape, bf16, False) for shape in own]
+
+
 def check_k2(gen) -> dict:
     """K2 against its plain version on the card (the plain side's products
     without TF32), as :func:`hold_k2` holds it, hd 192 included."""
@@ -1252,6 +1276,7 @@ def check_k2(gen) -> dict:
     cases += [(shape, dtype, False) for shape in own
               for dtype in (torch.bfloat16, torch.float32)]
     cases += [((8, 512, 16, 16, 64), torch.bfloat16, False)]
+    cases += k2_tile_edge_cases()
     errors = check_k2_cases(gen, cases + K2_HD192_CASES)
     # causal needs Sk == S: it raises, also where a gradient is wanted, and
     # nothing is launched
@@ -1820,8 +1845,7 @@ def check_k2_backward(gen) -> dict:
     cases += [((2, 1, 2, 2, 128), dt, True) for dt in (f32, bf16)]      # one row
     cases += [((1, 384, 4, 2, 64), dt, False) for dt in (f32, bf16)]    # non-causal
     cases += [((2, 200, 6, 2, 16), dt, False) for dt in (f32, bf16)]    # ragged non-causal
-    # hd 128, where the bf16 dK/dV kernel takes 32 q rows a step: ragged
-    # causal and ragged non-causal
+    # hd 128: ragged causal and ragged non-causal
     cases += [((1, 130, 8, 2, 128), dt, True) for dt in (f32, bf16)]
     cases += [((2, 200, 4, 2, 128), dt, False) for dt in (f32, bf16)]
     # keys of their own length (B, S, H, KV, hd, Sk), non-causal: the seamless
@@ -1831,6 +1855,7 @@ def check_k2_backward(gen) -> dict:
     own = [K2_CROSS_SHAPE, (2, 77, 6, 2, 64, 300), (1, 1024, 4, 2, 64, 512),
            (2, 40, 4, 2, 32, 1), (8, 1, 16, 16, 64, 512), (8, 512, 16, 16, 64)]
     cases += [(shape, dt, False) for shape in own for dt in (f32, bf16)]
+    cases += k2_tile_edge_cases()
     errors = check_k2_backward_cases(gen, cases + K2_HD192_CASES)
     # causal with Sk != S raises before any launch
     q, k, v = attention_inputs(gen, 1, 16, 2, 2, 32, bf16, Sk=24)
@@ -2837,7 +2862,8 @@ def library_times(library, stream=None) -> dict:
 def timing(name, shape, kernel, plain, library, ops_s, bytes_s, readings=1,
            library_stream=None, **extra) -> dict:
     """Times of ``kernel``, ``plain`` and ``library`` and the bound: the
-    kernel's device time from a replayed CUDA graph (``graph_ms``) and from
+    kernel's device time from a replayed CUDA graph (``graph_ms``, the
+    median of ``GRAPH_READINGS`` replays, all of which are recorded) and from
     the profiler, which with ``readings`` > 1 is the median of that many
     readings of 30 calls each, all of which are recorded; with the card's
     SM clock while they were taken (``clocked``)."""
@@ -2849,10 +2875,11 @@ def timings(name, shape, kernel, plain, library, ops_s, bytes_s, readings,
             library_stream, **extra) -> dict:
     read = [device_ms(kernel, 30) for _ in range(readings)]
     kernel_ms = None if None in read else statistics.median(read)
+    graph_read = [graph_ms(kernel) for _ in range(GRAPH_READINGS)]
     return {"name": name, "shape": shape,
             "kernel_ms": kernel_ms if kernel_ms is not None else event_ms(kernel, 10),
             "kernel_timed_by": "profiler" if kernel_ms is not None else "events",
-            "graph_ms": graph_ms(kernel),
+            "graph_ms": statistics.median(graph_read), "graph_ms_readings": graph_read,
             **({"kernel_ms_readings": read} if readings > 1 else {}),
             "call_ms": event_ms(kernel, 10), "plain_ms": event_ms(plain, 3),
             "plain_device_ms": device_ms(plain, 3),
@@ -2860,6 +2887,57 @@ def timings(name, shape, kernel, plain, library, ops_s, bytes_s, readings,
             "bound_ms": 1e3 * max(ops_s, bytes_s),
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "operations_ms": 1e3 * ops_s, "bytes_ms": 1e3 * bytes_s, **extra}
+
+
+def _state_and_parent(stat: Path) -> tuple[str, int] | None:
+    """A process's state letter and parent pid from its /proc stat file."""
+    try:
+        state, ppid = stat.read_text().rsplit(")", 1)[1].split()[:2]
+    except (OSError, ValueError):
+        return None                                    # ended while we read
+    return state, int(ppid)
+
+
+def descendants(pid: int) -> list[int]:
+    """The live processes below ``pid`` (children first), from /proc."""
+    parent = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        seen = _state_and_parent(stat)
+        if seen is not None and seen[0] != "Z":
+            parent[int(stat.parent.name)] = seen[1]
+    found, frontier = [], [pid]
+    while frontier:
+        frontier = [p for p, pp in parent.items() if pp in frontier]
+        found += frontier
+    return found
+
+
+def stop_descendants() -> None:
+    """SIGTERM, then after 5 s SIGKILL, every process this one started that
+    is still running, as a phase that failed half way can leave (a served
+    cluster whose replicas never published their ports), so that the script
+    never ends with a process of its own running."""
+    left = descendants(os.getpid())
+    if not left:
+        return
+    print(f"chip_smoke: stopping {len(left)} processes left running: {left}",
+          file=sys.stderr)
+    for sig, wait_s in ((signal.SIGTERM, 5.0), (signal.SIGKILL, 5.0)):
+        for pid in left:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.time() + wait_s
+        while time.time() < deadline:
+            with contextlib.suppress(ChildProcessError):
+                while os.waitpid(-1, os.WNOHANG)[0] > 0:
+                    pass
+            # by pid, not by descent: a killed child's children are reparented
+            left = [p for p in left
+                    if (seen := _state_and_parent(Path(f"/proc/{p}/stat"))) is not None
+                    and seen[0] != "Z"]
+            if not left:
+                return
+            time.sleep(0.05)
 
 
 def main() -> int:
@@ -2933,7 +3011,8 @@ def main() -> int:
     shapes += [time_k1(rng, o, n, members=False) for o, n in TIME_SHAPES]
     main = shapes[0]
     k2, k3, k2b, k3b = time_k2(gen), time_k3(gen), time_k2_backward(gen), time_k3_backward(gen)
-    k2["shapes"] = [time_k2_cross(gen), time_k2(gen, K2_HD192_SHAPE)]
+    k2["shapes"] = [time_k2_cross(gen), time_k2(gen, K2_HD192_SHAPE),
+                    time_k2(gen, K2_TRAIN_SHAPE)]
     k2b["shapes"] = [time_k2_backward_cross(gen), time_k2_backward(gen, K2_HD192_SHAPE)]
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
@@ -2996,4 +3075,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_descendants()
+    sys.exit(code)

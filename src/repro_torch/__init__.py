@@ -9,7 +9,10 @@ CUDA and never falls back to the CPU unless the caller asks for it.
 
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = "0.1.0"
 
@@ -21,6 +24,10 @@ def default_device(device: str | torch.device | None = None) -> torch.device:
     ``device=None``) and there is none, so that nothing quietly runs on the
     CPU; pass ``device="cpu"`` for that.
     """
+    # imported here, not at the top: the served transport's processes
+    # import this package and never touch a tensor
+    import torch
+
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

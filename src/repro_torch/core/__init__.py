@@ -15,12 +15,23 @@ The protocol stack (simulator, rsm, the protocols, runner) and the packages
 it runs on (scenario, faults, shard, obs, verify, coding) are copies of the
 JAX package's numpy and plain-Python modules, with every module path renamed;
 tests/test_torch_protocol_copies.py holds each copy to its reference.
+
+``quorum``'s names load on first use, since it imports torch and the
+protocol stack, which the served transport's processes import, does not.
 """
 
 from repro_torch.core import weights
-from repro_torch.core.quorum import QuorumResult, quorum_commit
 from repro_torch.core.object_manager import ObjectClass, ObjectManager, Route
 from repro_torch.core.runner import PROTOCOLS, RunConfig, run
+
+
+def __getattr__(name: str):
+    if name in ("QuorumResult", "quorum_commit"):
+        from repro_torch.core import quorum
+
+        return getattr(quorum, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = ["weights", "QuorumResult", "quorum_commit", "ObjectClass",
            "ObjectManager", "Route", "PROTOCOLS", "RunConfig", "run"]

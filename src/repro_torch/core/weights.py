@@ -20,18 +20,24 @@ and agree bit for bit. Ranks come from stable sorts, as ``jnp.argsort`` is
 stable, so tied latencies rank replicas by index in both packages; the sort
 runs on canonical keys (-0.0 as +0.0, every NaN last), so that the card
 orders such values as the CPU and ``jnp.argsort`` do.
+
+The module imports ``torch`` inside the functions that use it: the protocol
+stack, and so each process of the served transport, reads only the numpy
+functions (``geometric_weights_np``, ``solve_steepness``), and torch's import
+would take most of such a process's start.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import default_device
-from repro_torch.kernels.quorum_commit import sort_keys
+
+if TYPE_CHECKING:
+    import torch
 
 # Steepness bounds from the paper (§3.2): R in [1.0, 2.0].
 R_MIN = 1.0
@@ -49,15 +55,19 @@ def _overflows_float32(n: int, r: float) -> bool:
     return (n - 1) * np.log(max(r, 1.0 + 1e-12)) > 60.0
 
 
-def geometric_weights(n: int, r: float, dtype: torch.dtype = torch.float32,
+def geometric_weights(n: int, r: float, dtype: torch.dtype | None = None,
                       *, device: str | torch.device | None = None
                       ) -> torch.Tensor:
     """Weights for ``n`` replicas ordered fastest-first: w_i = r^(n-1-i).
 
-    Returns a descending weight vector; ``w[-1] == 1.0`` always (rank n-1
-    gets r^0), matching Table 1/2 of the paper.
+    Returns a descending weight vector of ``dtype`` (float32 by default);
+    ``w[-1] == 1.0`` always (rank n-1 gets r^0), matching Table 1/2 of the
+    paper.
     """
+    import torch
+
     _check_n_r(n, r)
+    dtype = torch.float32 if dtype is None else dtype
     device = default_device(device)
     exponents = torch.arange(n - 1, -1, -1, dtype=dtype, device=device)
     if _overflows_float32(n, r):
@@ -81,6 +91,8 @@ def geometric_weights_np(n: int, r: float,
 
 def consensus_threshold(weights: torch.Tensor) -> torch.Tensor:
     """T = sum(w)/2 over the last axis (paper §3.1)."""
+    import torch
+
     return torch.sum(weights, dim=-1) / 2.0
 
 
@@ -91,6 +103,8 @@ def cabinet_size(weights_desc: torch.Tensor) -> torch.Tensor:
     paper calls these k replicas the *cabinet* (top t+1 weighted replicas).
     Vectorized over leading axes.
     """
+    import torch
+
     csum = torch.cumsum(weights_desc, dim=-1)
     thresh = consensus_threshold(weights_desc)[..., None]
     # first index where cumulative weight STRICTLY exceeds T (see
@@ -100,6 +114,8 @@ def cabinet_size(weights_desc: torch.Tensor) -> torch.Tensor:
 
 
 def _descending(weights: torch.Tensor) -> torch.Tensor:
+    import torch
+
     return torch.sort(weights, dim=-1, descending=True).values
 
 
@@ -109,6 +125,8 @@ def check_invariant_progress(weights: torch.Tensor, t: int) -> torch.Tensor:
     ``weights`` need not be sorted. Vectorized over leading axes; returns a
     boolean tensor.
     """
+    import torch
+
     top = torch.sum(_descending(weights)[..., : t + 1], dim=-1)
     return top > consensus_threshold(weights)
 
@@ -119,6 +137,8 @@ def check_invariant_safety(weights: torch.Tensor, t: int) -> torch.Tensor:
     Under strict-crossing quorums (sum > T) a t-subset is safe iff its
     weight is <= T; the worst case is the t heaviest replicas.
     """
+    import torch
+
     if t == 0:
         return torch.ones(weights.shape[:-1], dtype=torch.bool,
                           device=weights.device)
@@ -131,6 +151,8 @@ def max_safe_t(weights: torch.Tensor) -> torch.Tensor:
 
     Computed directly from the sorted prefix sums (int32). Vectorized.
     """
+    import torch
+
     csum = torch.cumsum(_descending(weights), dim=-1)
     thresh = consensus_threshold(weights)[..., None]
     below = csum <= thresh * (1 + 1e-7)  # size-k prefix cannot form a quorum
@@ -179,6 +201,10 @@ def _by_rank(latency: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     tensor is formed. Ties rank by replica index, as the stable
     ``jnp.argsort`` does, on every device: -0.0 ties with +0.0 and NaN ranks
     last (:func:`sort_keys`)."""
+    import torch
+
+    from repro_torch.kernels.quorum_commit import sort_keys
+
     order = torch.sort(sort_keys(latency), dim=-1, stable=True).indices
     out = torch.empty(order.shape, dtype=values.dtype, device=latency.device)
     return out.scatter_(-1, order, values.expand_as(order))
@@ -186,6 +212,8 @@ def _by_rank(latency: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 def _ranks(latency: torch.Tensor) -> torch.Tensor:
     """Rank (0 = fastest) of each replica along the last axis."""
+    import torch
+
     return _by_rank(latency, torch.arange(latency.shape[-1], device=latency.device))
 
 
@@ -215,6 +243,8 @@ class WeightTracker:
     def init(num_objects: int, n: int, initial_latency_ms: float = 10.0,
              decay: float = 0.9, *, device: str | torch.device | None = None
              ) -> "WeightTracker":
+        import torch
+
         return WeightTracker(
             latency_ema=torch.full((num_objects, n), initial_latency_ms,
                                    dtype=torch.float32,
@@ -229,6 +259,8 @@ class WeightTracker:
         ``object_ids``: (batch,) integer; ``latencies_ms``: (batch, n). Which
         update wins for an id repeated within a batch is undefined.
         """
+        import torch
+
         d = self.decay
         ids = object_ids.to(torch.int64)
         cur = self.latency_ema[ids]

@@ -1,5 +1,5 @@
-// cp.async copies from global to shared memory, shared by the tensor-core
-// kernels (through tc_bf16.cuh and tc_tf32.cuh).
+// cp.async copies from global to shared memory, shared by K3's tensor-core
+// kernels (through tc_tf32.cuh); hopper.cuh takes smem_u32 from here.
 
 #pragma once
 

@@ -32,48 +32,49 @@
 // The dtype selects one of two kernels; nothing falls back from one to the
 // other.
 //
-// bfloat16: `flash_attention_bf16_kernel`, on the tensor cores.
-//   * One block of 4 warps owns a q tile of one (b, h); each warp owns 32 q
-//     rows (two 16-row m tiles) at hd <= 64 and 16 at hd 128 and 192, and
-//     keeps their m, l and float32 output accumulator in registers for the
-//     whole k loop (the TPU kernel carries them in VMEM across a sequential
-//     k-grid axis), and their Q fragments too up to hd 128; at hd 192 (96
-//     accumulators) each k step reads Q's fragments from the Q tile in
-//     shared memory. With two m tiles, each K or V fragment read from shared
-//     memory feeds two mma.
-//   * S = Q K^T runs as mma.sync m16n8k16 bf16 with float32 accumulation:
-//     a bf16 x bf16 product is exact in float32, so the scores equal the
-//     reference's float32 scores up to summation order. Scale and mask are
-//     applied to the accumulators.
-//   * The online softmax works on the accumulator fragments: row max and
-//     row sum by shuffles within a quad (the 4 lanes that hold one row). The
-//     softmax's arithmetic, not the tensor cores, holds the kernel back, so
-//     the scale is folded into the exponent: p = 2^(s * scale * log2 e - m'),
-//     one FFMA and one ex2.approx.ftz an entry; the mask runs only on the
-//     diagonal tile and the ragged last tile.
-//   * P is rounded to bf16 in registers and used as the A operand of the
-//     P V mma as it stands: the m16n8 accumulator layout of two key tiles is
-//     the A layout of one m16n8k16 step. l sums the rounded P, so numerator
-//     and denominator use the same weights. (On the TPU the float32
-//     dot_general of p and v runs as one bf16 pass of the MXU at default
-//     precision, which rounds p the same way.)
-//   * K and V tiles of 64 keys arrive by cp.async in a two-stage ring in
-//     shared memory: tile t+1 is copied while tile t is multiplied. Rows are
-//     padded by 16 bytes, which makes every ldmatrix (8 rows of 16 bytes)
-//     free of bank conflicts; V's B fragments come through ldmatrix.trans.
-//     These helpers are in tc_bf16.cuh, which the backward shares.
-//   * The output tile is staged through the Q tile's shared memory and
-//     written with 16-byte stores.
-//   * Causal: k tiles wholly above the diagonal are never loaded, a warp
-//     skips a tile that lies wholly above its own rows, and q tiles are
-//     handed out heaviest first. GQA reads the kv head of each query head in place. Any
-//     S and Sk: rows past S and keys past Sk are zero-filled by cp.async and
-//     masked (the TPU kernel asserts that S divides into its blocks). hd 16,
-//     32, 64, 128, 192 (nemotron-4-340b's 18,432 over 96 heads; 128 KB of
-//     shared memory a block at hd 192).
-//   * Registers (CUDA 12.8 nvcc -O3 for sm_90a, as chip_smoke.py prints
-//     them): 246 at hd 64 (two blocks of 4 warps an SM), 178 at hd 128, 180
-//     at hd 192 (one block an SM), 186 at hd 32, 151 at hd 16; no spills.
+// bfloat16: `flash_attention_bf16_kernel`, warp-specialised, with TMA tile
+// loads and wgmma products (the helpers are in hopper.cuh, which the
+// backward shares).
+//   * A block owns 64 NC q rows of one (b, h): NC = 3 consumer warpgroups up
+//     to hd 64, 2 above, each 64 rows, plus one producer warpgroup. Tensor
+//     maps over the (B, S, heads, hd) layouts (4-D, swizzled, built by the
+//     host function below with cuTensorMapEncodeTiled, which comes from the
+//     driver through cudaGetDriverEntryPointByVersion: no -lcuda) let one
+//     thread of the producer load Q once and keep a ring of 3 K/V stages of
+//     128 keys (64 at hd 192) in flight on mbarriers (full: the bytes have
+//     landed; empty: every consumer warp is done with the stage). A query
+//     head's K/V tile is the kv-head coordinate h / (H/KV) of the map, and
+//     TMA's zero fill past S and Sk replaces the cp.async zero fill. The
+//     producer gives its registers to the consumers (setmaxnreg: 24 and 240
+//     with two consumers, 24 and 160 with three).
+//   * S = Q K^T is wgmma m64nBNk16 with Q's and K's tiles as K-major A and
+//     B operands in shared memory. Float32
+//     accumulators; a bf16 x bf16 product is exact in float32, so the scores
+//     equal the reference's float32 scores up to summation order. The online
+//     softmax works on the accumulator fragments (row max and row sum by
+//     quad shuffles, scale folded into the exponent: p = 2^(s scale log2 e -
+//     m'), ex2.approx.ftz; the mask runs only on the diagonal tile and the
+//     ragged last tile). P is rounded to bf16 in registers and is the
+//     register A operand of O += P V, with V's tile as a transposed B; l sums
+//     the rounded P, so numerator and denominator use the same weights. (On
+//     the TPU the float32 dot_general of p and v runs as one bf16 pass of the
+//     MXU at default precision, which rounds p the same way.)
+//   * Two consumers pipeline: tile t's S and tile t - 1's P V go to the
+//     tensor cores together, and tile t's softmax runs while P V does (P of
+//     two tiles in registers), and they take turns to issue (ping-pong on
+//     named barriers). Three consumers take one tile at a time and overlap
+//     each other.
+//   * The output tile is staged through the warpgroup's rows of the Q tile
+//     (swizzled) and stored by TMA, which clips rows past S.
+//   * Causal: k tiles wholly above the diagonal are never loaded, a
+//     warpgroup skips a tile that lies wholly above its rows, and q tiles are
+//     handed out heaviest first. Any S and Sk (the TPU kernel asserts that S
+//     divides into its blocks). hd 16, 32, 64, 128, 192 (nemotron-4-340b's
+//     18,432 over 96 heads).
+//   * Shared memory: 121 KB a block at hd 64, 225 KB at hd 128, 193 KB at
+//     hd 192; one block an SM. Registers: see chip_smoke.py's
+//     {"resource_usage": ...} line (ptxas reports the launch count, 168 or
+//     128; the consumers run with 240 or 160).
 //
 // float32: `flash_attention_f32_kernel`, on CUDA cores. The float32 contract
 // is 1e-4, which no bf16 or TF32 product meets; only the smoke model's
@@ -87,7 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tc_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -282,239 +283,314 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16), cp.async K/V ring
+// bfloat16: a TMA producer warp and two wgmma consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kTcBK = 64;              // keys per k tile
+constexpr int kWgThreads = 128;  // one warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 16-row m tiles a warp owns: two where the registers allow it (each K and V
-// fragment read from shared memory then feeds two mma), one at hd 128
 template <int HD>
-__host__ __device__ constexpr int tc_mtiles() { return HD <= 64 ? 2 : 1; }
-template <int HD>
-__host__ __device__ constexpr int tc_bq() { return kTcWarps * 16 * tc_mtiles<HD>(); }
+struct FwdTiles {
+  // consumer warpgroups of 64 q rows each: three up to hd 64, where 160
+  // registers a thread hold a warpgroup's state; else two, with 240
+  static constexpr int NC = HD <= 64 ? 3 : 2;
+  static constexpr int BQ = 64 * NC;                  // q rows of a block
+  static constexpr int THREADS = kWgThreads * (NC + 1);  // and the producer's warpgroup
+  static constexpr int CONSUMER_REGS = NC == 3 ? 160 : 240;
+  // two consumers overlap a tile's softmax with their own products (P of
+  // two tiles in registers); three have no registers for that and overlap
+  // each other's
+  static constexpr bool PIPE = NC == 2;
+  static constexpr int BN = HD > 128 ? 64 : 128;      // keys of a k tile
+  static constexpr int STAGES = 3;                    // K/V stages in flight
+  static constexpr int Q_ELEMS = BQ * HD;
+  static constexpr int KV_ELEMS = BN * HD;
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  // 1 KB of slack to align the tiles to 1024 bytes, then Q, the K and V
+  // stages and the barriers
+  static constexpr int BYTES = 1024 + 2 * (Q_ELEMS + 2 * STAGES * KV_ELEMS) + 8 * BARRIERS;
+};
 
 template <int HD>
-constexpr int tc_smem_bytes() {  // the Q tile and two stages of K and V
-  return (tc_bq<HD>() + 4 * kTcBK) * tc_pitch<HD>() * 2;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads) flash_attention_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+__global__ void __launch_bounds__(FwdTiles<HD>::THREADS, 1) flash_attention_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
     float* __restrict__ lse, int S, int Sk, int H, int KV, float scale_log2, bool causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int P = tc_pitch<HD>();
-  constexpr int MT = tc_mtiles<HD>();  // 16-row m tiles of the warp
-  constexpr int BQ = tc_bq<HD>();      // q rows of the block
-  constexpr int WR = 16 * MT;          // q rows of the warp
-  constexpr int kSteps = HD / 16;      // k steps of Q K^T, and pairs of 8-column tiles of P V
-  constexpr int kNT = kTcBK / 8;       // 8-key tiles of S
-  constexpr int kDT = HD / 8;          // 8-column tiles of the output
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
-  __nv_bfloat16* ks = qs + BQ * P;                                   // [2][kTcBK][P]
-  __nv_bfloat16* vs = ks + 2 * kTcBK * P;                            // [2][kTcBK][P]
+  using T = Tile<HD>;
+  using F = FwdTiles<HD>;
+  constexpr int BN = F::BN, ST = F::STAGES, BQ = F::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align_smem(smem_raw));  // [NP][BQ][PC]
+  bf16* ks = qs + F::Q_ELEMS;                                  // [ST][NP][BN][PC]
+  bf16* vs = ks + ST * F::KV_ELEMS;                            // [ST][NP][BN][PC]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + ST * F::KV_ELEMS);
+  uint64_t* k_full = q_full + 1;   // [ST]
+  uint64_t* v_full = k_full + ST;  // [ST]
+  uint64_t* empty = v_full + ST;   // [ST]
 
   const int n_qt = (S + BQ - 1) / BQ;
   const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.x) : blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row and column pair
   const int q0 = qt * BQ;
-  const int row0 = q0 + warp * WR;
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const __nv_bfloat16* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  int n_kt = (Sk + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BN + 1);  // skip tiles above the diagonal
+  const int wg = threadIdx.x / kWgThreads;
 
-  int n_kt = (Sk + kTcBK - 1) / kTcBK;
-  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / kTcBK + 1);  // skip tiles above the diagonal
+  if (threadIdx.x == 0) {
+    prefetch_map(&tq);
+    prefetch_map(&tk);
+    prefetch_map(&tv);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 4 * F::NC);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  tc_load_rows<HD, BQ>(qs, qb, q_stride, q0, S);
-  tc_load_rows<HD, kTcBK>(ks, kb, kv_stride, 0, Sk);
-  tc_load_rows<HD, kTcBK>(vs, vb, kv_stride, 0, Sk);
-  cp_async_commit();
-
-  // the warp's Q fragments, WR rows x HD, held in registers up to hd 128; at
-  // hd 192 they would take 48 registers beside 96 accumulators, so each k
-  // step reads them from the Q tile in shared memory instead
-  constexpr bool kQInRegs = HD <= 128;
-  uint32_t qa[MT][kQInRegs ? kSteps : 1][4];
-  float acc[MT][kDT][4];        // output accumulators: rows g and g + 8 of each m tile
-  float m[MT][2], l[MT][2];     // running max of the raw scores; this lane's part of the row sums
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m[mt][0] = m[mt][1] = kNegInf;
-    l[mt][0] = l[mt][1] = 0.0f;
-#pragma unroll
-    for (int n = 0; n < kDT; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.0f;
+  if (wg == 0) {
+    // producer: one thread keeps the K/V ring full
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(q_full, F::Q_ELEMS * 2);
+      for (int p = 0; p < T::NP; ++p)
+        for (int r = 0; r < BQ; r += 64)
+          tma_load(qs + (p * BQ + r) * T::PC, &tq, q_full, p * T::PC, h, q0 + r, b);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % ST;
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        bf16* kst = ks + s * F::KV_ELEMS;
+        bf16* vst = vs + s * F::KV_ELEMS;
+        mbar_arrive_tx(&k_full[s], F::KV_ELEMS * 2);
+        for (int p = 0; p < T::NP; ++p)
+          for (int r = 0; r < BN; r += 64)
+            tma_load(kst + (p * BN + r) * T::PC, &tk, &k_full[s], p * T::PC, kvh, it * BN + r, b);
+        mbar_arrive_tx(&v_full[s], F::KV_ELEMS * 2);
+        for (int p = 0; p < T::NP; ++p)
+          for (int r = 0; r < BN; r += 64)
+            tma_load(vst + (p * BN + r) * T::PC, &tv, &v_full[s], p * T::PC, kvh, it * BN + r, b);
+      }
+    }
+    return;
   }
 
-  // ldmatrix addresses: lane supplies row (lane % 8) of matrix lane / 8
-  const int lm_r = lane % 8, lm_m = lane / 8;
+  // consumers: warpgroup cw owns rows q0 + 64 cw .. q0 + 64 cw + 63
+  regs_inc<F::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = q0 + 64 * cw + 16 * warp;  // the warp's first row
+  const int wg_last = q0 + 64 * cw + 63;      // the warpgroup's last row
+  const bf16* qw = qs + 64 * cw * T::PC;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < n_kt) {  // copy tile kt + 1 while tile kt is multiplied
-      const int nxt = (kt + 1) & 1;
-      tc_load_rows<HD, kTcBK>(ks + nxt * kTcBK * P, kb, kv_stride, (kt + 1) * kTcBK, Sk);
-      tc_load_rows<HD, kTcBK>(vs + nxt * kTcBK * P, vb, kv_stride, (kt + 1) * kTcBK, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if constexpr (kQInRegs) {
-      if (kt == 0) {
+  float o[HD / 2];  // output accumulator: rows g and g + 8 of the warp
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int kk = 0; kk < kSteps; ++kk)
-            ldmatrix_x4(qa[mt][kk], qs + (warp * WR + 16 * mt + lm_r + 8 * (lm_m % 2)) * P +
-                                        16 * kk + 8 * (lm_m / 2));
-      }
-    }
-    const int k0 = kt * kTcBK;
-    if (causal && k0 > row0 + WR - 1) {  // every key of the tile lies above the warp's rows
-      __syncthreads();
-      continue;
-    }
-    const __nv_bfloat16* kst = ks + stage * kTcBK * P;
-    const __nv_bfloat16* vst = vs + stage * kTcBK * P;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // running max of the raw scores
+  float l[2] = {0.0f, 0.0f};        // this lane's part of the row sums
+  float sc[BN / 2];                 // S of the tile in hand
+  uint32_t pa[BN / 16][4], pb[BN / 16][4];  // P of two tiles: one in P V, one being formed
+  // tiles that hold a key at or below one of the warpgroup's rows; the rest
+  // (causal, hd 192's 64-key tiles) lie wholly above them
+  const int n_my = causal ? min(n_kt, wg_last / BN + 1) : n_kt;
 
-    // s = Q K^T for the warp's rows and the tile's 64 keys
-    float s[MT][kNT][4];
+  // Ping-pong: the two warpgroups take turns to issue their products, so
+  // that one's softmax runs while the other's products do. Warpgroup cw
+  // waits at named barrier 4 + cw for its turn and hands it over at the
+  // other's (1 + cw is its epilogue's). Only two, and where both walk the
+  // same tiles: 128-key tiles.
+  constexpr bool kPingPong = F::NC == 2 && BN == BQ;
+  auto my_turn = [&]() __attribute__((always_inline)) {
+    if constexpr (kPingPong) named_sync(4 + cw, 2 * kWgThreads);
+  };
+  auto your_turn = [&](bool last) __attribute__((always_inline)) {
+    // warpgroup 0 takes the first turn, so warpgroup 1's last hand-over
+    // would find no turn left to start
+    if constexpr (kPingPong)
+      if (!(last && cw == 1)) named_arrive(5 - cw, 2 * kWgThreads);
+  };
+
+  // the warpgroup's stage of tile `it` is done with
+  auto release = [&](int it) __attribute__((always_inline)) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % ST]);
+  };
+  // S = Q K^T of tile it, on its own wgmma group
+  auto issue_s = [&](int it) __attribute__((always_inline)) {
+    const bf16* kst = ks + (it % ST) * F::KV_ELEMS;
+    mbar_wait(&k_full[it % ST], (it / ST) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int kk = 0; kk < T::kSteps; ++kk)
+      wgmma_ss<BN>(sc, desc_k<HD>(qw, BQ, kk), desc_k<HD>(kst, BN, kk), kk > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile it
+  auto issue_pv = [&](int it, const uint32_t (&p)[BN / 16][4]) __attribute__((always_inline)) {
+    const bf16* vst = vs + (it % ST) * F::KV_ELEMS;
+    mbar_wait(&v_full[it % ST], (it / ST) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.0f;
+    for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<HD>(o, p[kk], desc_mn<HD>(vst, BN, kk), 1);
+    wgmma_commit();
+  };
+  // the online softmax of tile it on sc: the new row max, P in bf16 into p
+  // (the register A operand of O += P V), l scaled and summing the rounded
+  // P; returns the factors by which O is still to be scaled
+  auto softmax = [&](int it, uint32_t (&p)[BN / 16][4], float (&alpha)[2]) __attribute__((always_inline)) {
+    const int k0 = it * BN;
+    // mask; sc[4j + e] is row g + 8 (e >> 1), key 8j + 2t + (e & 1). The
+    // scale is applied in the exponent (scale > 0 keeps the max where it is).
+    if (k0 + BN > Sk || (causal && k0 + BN - 1 > row0)) {
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      if constexpr (!kQInRegs) {
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ldmatrix_x4(qa[mt][0], qs + (warp * WR + 16 * mt + lm_r + 8 * (lm_m % 2)) * P +
-                                     16 * kk + 8 * (lm_m / 2));
-      }
-#pragma unroll
-      for (int jp = 0; jp < kNT / 2; ++jp) {
-        uint32_t kf[4];  // B fragments of key tiles 2 jp and 2 jp + 1
-        ldmatrix_x4(kf, kst + (16 * jp + lm_r + 8 * (lm_m / 2)) * P + 16 * kk + 8 * (lm_m % 2));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * jp], qa[mt][kQInRegs ? kk : 0], kf[0], kf[1]);
-          mma_bf16(s[mt][2 * jp + 1], qa[mt][kQInRegs ? kk : 0], kf[2], kf[3]);
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = row0 + g + 8 * (e >> 1);
+          if (kpos >= Sk || (causal && kpos > qpos)) sc[4 * j + e] = kNegInf;
         }
-      }
     }
-
-    // mask; s[.][j][0..1] are row g, s[.][j][2..3] row g + 8. The scale is
-    // applied in the exponent (scale > 0 keeps the max where it is).
-    if (k0 + kTcBK > Sk || (causal && k0 + kTcBK - 1 > row0)) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
-            const int qpos = row0 + 16 * mt + g + 8 * (e >> 1);
-            if (kpos >= Sk || (causal && kpos > qpos)) s[mt][j][e] = kNegInf;
-          }
-    }
-
-    // online softmax on the fragments: row max over the quad
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = m[mt][r];
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mx = fmaxf(mx, fmaxf(s[mt][j][2 * r], s[mt][j][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float alpha = exp2_ftz((m[mt][r] - mx) * scale_log2);
-        m[mt][r] = mx;
-        l[mt][r] *= alpha;
-#pragma unroll
-        for (int n = 0; n < kDT; ++n) {
-          acc[mt][n][2 * r] *= alpha;
-          acc[mt][n][2 * r + 1] *= alpha;
-        }
-      }
-    }
-
-    // P in bf16 as the A operand of P V, 16 keys a step; l sums the rounded P
-#pragma unroll
-    for (int kk = 0; kk < kNT / 2; ++kk) {
-      // A = {row g keys 0-7, row g+8 keys 0-7, row g keys 8-15, row g+8 keys 8-15}
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const float m0 = m[mt][0] * scale_log2, m1 = m[mt][1] * scale_log2;
-        float r0, r1;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {  // key tiles 2 kk and 2 kk + 1
-          const float* sj = s[mt][2 * kk + half];
-          pa[mt][2 * half] = pack_bf16(exp2_ftz(fmaf(sj[0], scale_log2, -m0)),
-                                       exp2_ftz(fmaf(sj[1], scale_log2, -m0)), r0, r1);
-          l[mt][0] += r0 + r1;
-          pa[mt][2 * half + 1] = pack_bf16(exp2_ftz(fmaf(sj[2], scale_log2, -m1)),
-                                           exp2_ftz(fmaf(sj[3], scale_log2, -m1)), r0, r1);
-          l[mt][1] += r0 + r1;
-        }
-      }
-#pragma unroll
-      for (int dp = 0; dp < kDT / 2; ++dp) {
-        uint32_t vf[4];  // B fragments of output tiles 2 dp and 2 dp + 1
-        ldmatrix_x4_trans(vf, vst + (16 * kk + lm_r + 8 * (lm_m % 2)) * P + 16 * dp + 8 * (lm_m / 2));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * dp], pa[mt], vf[0], vf[1]);
-          mma_bf16(acc[mt][2 * dp + 1], pa[mt], vf[2], vf[3]);
-        }
-      }
-    }
-    __syncthreads();  // the stage is consumed before the next copy into it
-  }
-
-  // o = acc / l, staged through the warp's own rows of the Q tile
-  __nv_bfloat16* ow = qs + warp * WR * P;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+    // row max over the lane's entries in 4 independent chains, then over the quad
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
-      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
-      const float denom = fmaxf(l[mt][r], 1e-30f);
-      const int row = row0 + 16 * mt + g + 8 * r;
-      // m holds raw scores and l sums 2^((s - m) scale log2 e), so the
-      // natural log-sum-exp of the scaled logits is (m scale log2 e + log2 l) ln 2
-      if (lse != nullptr && t == 0 && row < S)
-        lse[(static_cast<int64_t>(b) * H + h) * S + row] =
-            (m[mt][r] * scale_log2 + log2f(denom)) * 0.6931471805599453f;
-      l[mt][r] = 1.0f / denom;
+      float mx[4] = {m[r], m[r], m[r], m[r]};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        mx[j % 4] = fmaxf(mx[j % 4], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      float mr = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 1));
+      mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, 2));
+      alpha[r] = exp2_ftz((m[r] - mr) * scale_log2);
+      m[r] = mr;
+    }
+    const float m0 = m[0] * scale_log2, m1 = m[1] * scale_log2;
+    float ls[2][4] = {};  // the tile's sums of the rounded P, 4 chains a row
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // key chunks 2 kk and 2 kk + 1
+        const float* sj = sc + 4 * (2 * kk + half);
+        const int c = (2 * kk + half) % 4;
+        float r0, r1;
+        p[kk][2 * half] = pack_bf16(exp2_ftz(fmaf(sj[0], scale_log2, -m0)),
+                                    exp2_ftz(fmaf(sj[1], scale_log2, -m0)), r0, r1);
+        ls[0][c] += r0 + r1;
+        p[kk][2 * half + 1] = pack_bf16(exp2_ftz(fmaf(sj[2], scale_log2, -m1)),
+                                        exp2_ftz(fmaf(sj[3], scale_log2, -m1)), r0, r1);
+        ls[1][c] += r0 + r1;
+      }
     }
 #pragma unroll
-    for (int n = 0; n < kDT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(ow + (16 * mt + g) * P + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[mt][n][0] * l[mt][0], acc[mt][n][1] * l[mt][0]);
-      *reinterpret_cast<__nv_bfloat162*>(ow + (16 * mt + g + 8) * P + 8 * n + 2 * t) =
-          __floats2bfloat162_rn(acc[mt][n][2] * l[mt][1], acc[mt][n][3] * l[mt][1]);
+    for (int r = 0; r < 2; ++r)
+      l[r] = fmaf(l[r], alpha[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
+  };
+  auto rescale = [&](const float (&alpha)[2]) __attribute__((always_inline)) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
     }
+  };
+  mbar_wait(q_full, 0);
+  if constexpr (!F::PIPE) {
+    // one tile at a time: S, softmax, O scaled, O += P V
+    for (int it = 0; it < n_my; ++it) {
+      issue_s(it);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      float alpha[2];
+      softmax(it, pa, alpha);
+      rescale(alpha);
+      fence_regs(o);
+      issue_pv(it, pa);
+      wgmma_wait<0>();
+      fence_regs(o);
+      release(it);
+    }
+  } else {
+    // Tile it's S and tile it - 1's P V go to the tensor cores together,
+    // and tile it's softmax runs while P V does: P of two tiles in registers,
+    // pa and pb by turns (the loop runs two tiles a pass, so that the
+    // registers alternate without copies). One step is one turn.
+    auto step = [&](int it, uint32_t (&p_prev)[BN / 16][4],
+                    uint32_t (&p)[BN / 16][4]) __attribute__((always_inline)) {
+      my_turn();
+      issue_s(it);
+      issue_pv(it - 1, p_prev);
+      your_turn(false);
+      wgmma_wait<1>();  // S of tile it
+      fence_regs(sc);
+      float alpha[2];
+      softmax(it, p, alpha);
+      fence_regs(p);  // the exponentials run here, beside P V, not after the wait
+      fence_regs(l);
+      wgmma_wait<0>();  // P V of tile it - 1
+      fence_regs(o);
+      release(it - 1);
+      rescale(alpha);
+    };
+    if constexpr (kPingPong)
+      if (cw == 1) named_arrive(4, 2 * kWgThreads);  // warpgroup 0 goes first
+    my_turn();
+    issue_s(0);
+    your_turn(false);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float alpha[2];
+    softmax(0, pa, alpha);  // O is 0: nothing to scale
+    int it = 1;
+    for (; it + 1 < n_my; it += 2) {
+      step(it, pa, pb);
+      step(it + 1, pb, pa);
+    }
+    if (it < n_my) {
+      step(it, pa, pb);
+      my_turn();
+      issue_pv(it, pb);
+    } else {
+      my_turn();
+      issue_pv(it - 1, pa);
+    }
+    your_turn(true);
+    wgmma_wait<0>();
+    fence_regs(o);
+    release(n_my - 1);
   }
-  __syncwarp();
-  constexpr int kChunks = HD / 8;
-  for (int c = lane; c < WR * kChunks; c += 32) {
-    const int r = c / kChunks, d0 = (c % kChunks) * 8;
-    if (row0 + r < S)
-      *reinterpret_cast<uint4*>(o + ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD + d0) =
-          *reinterpret_cast<const uint4*>(ow + r * P + d0);
+  for (int skip = n_my; skip < n_kt; ++skip) {  // tiles above the rows: wait, then hand back
+    mbar_wait(&k_full[skip % ST], (skip / ST) & 1);
+    release(skip);
+  }
+
+  // o = acc / l, staged through the warpgroup's own rows of the Q tile and
+  // stored by TMA (rows past S are not written); the log-sum-exp
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float denom = fmaxf(l[r], 1e-30f);
+    const int row = row0 + g + 8 * r;
+    // m holds raw scores and l sums 2^((s - m) scale log2 e), so the
+    // natural log-sum-exp of the scaled logits is (m scale log2 e + log2 l) ln 2
+    if (lse != nullptr && t == 0 && row < S)
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] =
+          (m[r] * scale_log2 + log2f(denom)) * 0.6931471805599453f;
+    inv[r] = 1.0f / denom;
+  }
+  stage_tile<HD>(qs, BQ, 64 * cw, o, inv[0], inv[1]);
+  fence_proxy_async();
+  named_sync(1 + cw, kWgThreads);
+  if (tid == 0) {
+    for (int p = 0; p < T::NP; ++p)
+      tma_store(&to, qs + (p * BQ + 64 * cw) * T::PC, p * T::PC, h, q0 + 64 * cw, b);
+    tma_store_wait();
   }
 }
 
@@ -538,17 +614,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                 int S, int Sk, int H, int KV, bool causal, cudaStream_t stream) {
-  constexpr int bytes = tc_smem_bytes<HD>();
+  CUtensorMap tq, tk, tv, to;
+  int err = make_map<HD>(&tq, q, B, S, H);
+  if (err == 0) err = make_map<HD>(&tk, k, B, Sk, KV);
+  if (err == 0) err = make_map<HD>(&tv, v, B, Sk, KV);
+  if (err == 0) err = make_map<HD>(&to, o, B, S, H);
+  if (err != 0) return err;
+  constexpr int bytes = FwdTiles<HD>::BYTES;
   auto kernel = flash_attention_bf16_kernel<HD>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + tc_bq<HD>() - 1) / tc_bq<HD>(), H, B);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  constexpr int BQ = FwdTiles<HD>::BQ;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
-  kernel<<<grid, kTcThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, S, Sk, H, KV,
-      scale * kLog2e, causal);
+  kernel<<<grid, FwdTiles<HD>::THREADS, bytes, stream>>>(tq, tk, tv, to, lse, S, Sk, H, KV,
+                                                         scale * kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

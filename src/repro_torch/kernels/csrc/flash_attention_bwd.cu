@@ -45,54 +45,57 @@
 // The dtype selects the kernels; nothing falls back from one pair to the
 // other.
 //
-// bfloat16: `attn_bwd_dq_bf16_kernel`, then `attn_bwd_dkdv_bf16_kernel`, on
-// the tensor cores (mma.sync m16n8k16, bf16 operands, float32 accumulators;
-// the helpers are in tc_bf16.cuh). They issue nine products where the
-// gradient needs five (S and dP are formed three times), 3.1e11 FLOP at the
-// training shape, to need no atomics and no float32 dS in device memory.
-//   * D/dQ: one block of 4 warps per (b, h, 64-row q tile), each warp 16
-//     rows. Q and dO stay in shared memory; K and V tiles of 64 keys arrive
-//     by cp.async in a two-stage ring, which runs on from the first walk
-//     over the key tiles into the second.
-//       - Walk 1 forms S = Q K^T and dP = dO V^T and sums l = sum_j P and
-//         sum_j P dP with P from the forward's lse. Then D = sum P dP / l and
-//         lse' = lse + ln l: P is renormalised to sum to 1 in this kernel's
-//         own arithmetic, so sum_j dS_ij is 0 up to rounding. (The forward's
-//         l sums P rounded to bf16; from its lse alone the rows' sums miss 1
-//         by up to a bf16 rounding, and dQ then misses the bf16 row limit at
-//         small S: tests/test_torch_kernel_numerics.py.)
+// bfloat16: `attn_bwd_dq_bf16_kernel`, then `attn_bwd_dkdv_bf16_kernel`,
+// each warp-specialised: one producer warpgroup keeps tiles in flight by
+// TMA on mbarriers and hands its registers (setmaxnreg 24) to two consumer
+// warpgroups of 64 rows (240 registers) that issue wgmma products with
+// float32 accumulators (the helpers and the tile layout are in hopper.cuh,
+// shared with the forward; tensor maps over the (B, S, heads, hd) layouts are
+// built by the host function below, cuTensorMapEncodeTiled found through
+// cudaGetDriverEntryPointByVersion, no -lcuda). They issue nine products
+// where the gradient needs five (S and dP are formed three times), 3.1e11
+// FLOP at the training shape, to need no atomics and no float32 dS in device
+// memory; every sum runs in a fixed order, so two runs give the same bits.
+//   * D/dQ: one block per (b, h, 128-row q tile), each consumer 64 rows. Q
+//     and dO are loaded once; K and V tiles of 128 keys up to hd 64 (64
+//     above) stream through a ring of 3 stages (2 at hd 192), which runs on
+//     from the first walk over the key tiles into the second.
+//       - S = Q K^T and dP = dO V^T with Q and dO as register A operands
+//         (loaded once; from shared memory at hd 192) and K, V as K-major B.
+//       - Walk 1 sums l = sum_j P and sum_j P dP with P from the forward's
+//         lse. Then D = sum P dP / l and lse' = lse + ln l: P is renormalised
+//         to sum to 1 in this kernel's own arithmetic, so sum_j dS_ij is 0 up
+//         to rounding. (The forward's l sums P rounded to bf16; from its lse
+//         alone the rows' sums miss 1 by up to a bf16 rounding, and dQ then
+//         misses the bf16 row limit at small S:
+//         tests/test_torch_kernel_numerics.py.)
 //       - Walk 2 forms S and dP again, P from lse', dS = P (dP - D) rounded
-//         to bf16 in registers, and uses dS as the A operand of dQ += dS K
-//         as it stands (the accumulators of two 8-key tiles are one k step),
-//         with K's B fragments through ldmatrix.trans.
+//         to bf16 in registers, and uses dS as the register A operand of
+//         dQ += dS K, K's tile a transposed B.
 //     D and lse' go to the float32 scratch (2, B, H, S) for dK/dV.
-//   * dK/dV: one block of 4 warps per (b, kv head, 64-key tile), each warp
-//     16 keys, whose dK and dV accumulators stay in registers for the whole
-//     walk over the G query heads of the kv head and their q tiles (64 rows,
-//     32 at hd 128 and 192 to keep the accumulators of S^T and dP^T small). K and V
-//     stay in shared memory; Q, dO, lse' and D stream through a two-stage
-//     cp.async ring. It forms S^T = K Q^T and dP^T = V dO^T, so P^T and
-//     dS^T come out of the accumulators in the A layout of dV += P^T dO and
-//     dK += dS^T Q, with dO and Q through ldmatrix.trans.
+//   * dK/dV: one block per (b, kv head, 128-key tile), each consumer 64
+//     keys, whose dK and dV accumulators stay in registers for the whole walk
+//     over the G query heads of the kv head and their 64-row q tiles. K and V
+//     are loaded once; Q and dO stream through a ring of 3 stages (2 at hd
+//     192) by TMA, lse' and D beside them, loaded by the producer warp's
+//     lanes. S^T = K Q^T and dP^T = V dO^T take K and V as A and Q, dO as
+//     K-major B from shared memory; P^T and dS^T, rounded to bf16, are the
+//     register A operands of dV += P^T dO and dK += dS^T Q, with dO and Q as
+//     transposed B. At hd 192, where dK and dV would take 192 accumulators a
+//     thread, a block takes 64 keys and its consumers split the work: one
+//     forms S^T and dV, the other S^T, dP^T and dK.
 //   * The tile index is the grid's slowest axis, so the heaviest causal
 //     tiles (the last q tiles for dQ, the first key tiles for dK/dV) start
-//     first. D/dQ walks ceil(Sk / 64) key tiles (non-causal) and dK/dV has
-//     ceil(Sk / 64) blocks a (b, kv head), each walking every q tile.
-//     Masked entries are selected to 0, on the diagonal and ragged tiles
-//     only. Rows past S and keys past Sk are zero-filled by cp.async; their
-//     results are never stored. Outputs are staged through the warp's own
-//     rows of shared memory into 16-byte stores. hd 16, 32, 64, 128, 192.
-//   * hd 192 (nemotron-4-340b): dK and dV would take 192 accumulators a
-//     thread, dQ 96 beside S and dP. So two blocks share each tile, each
-//     owning half of the output's columns (col_split, the grid's x axis
-//     doubled) and forming S and dP over the whole head dim for itself: 15
-//     products where the gradient needs five (nine below hd 192). Only the
-//     first half's block writes D and lse'.
-//   * Registers (nvcc -O3 for sm_90a, as chip_smoke.py prints them): D/dQ
-//     168 at hd 192 (8 bytes spilled), 240 at hd 128, 164 at hd 64, 128 at hd
-//     32 and 16; dK/dV 218 at hd 192, 243 at hd 128, 229 at hd 64, 128 at hd
-//     32 (4 bytes spilled), 87 at hd 16. Two blocks
-//     of 4 warps fit an SM at hd 128.
+//     first. D/dQ walks ceil(Sk / BN) key tiles (non-causal) and dK/dV has
+//     ceil(Sk / 128) blocks a (b, kv head), each walking every q tile; a
+//     consumer skips (waits for and hands back) a tile that lies wholly above
+//     its rows or keys. Masked entries are selected to 0, on the diagonal and
+//     ragged tiles only. TMA zero-fills rows past S and keys past Sk; the
+//     outputs are staged through the consumer's own rows of Q (dQ) or K and V
+//     (dK, dV), swizzled, and stored by TMA, which clips rows past S and keys
+//     past Sk. hd 16, 32, 64, 128, 192.
+//   * Registers: see chip_smoke.py's {"resource_usage": ...} line (ptxas
+//     reports the launch count, 168; the consumers run with 240).
 //
 // float32: `attn_bwd_dq_f32_kernel`, then `attn_bwd_dkdv_f32_kernel`, on CUDA
 // cores in float32 throughout (the float32 contract is 1e-4, which no bf16 or
@@ -117,7 +120,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tc_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -414,119 +417,199 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_f32_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16), cp.async rings
+// bfloat16: a TMA producer warp and two wgmma consumer warpgroups a block
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
+constexpr int kWgThreads = 128;             // one warpgroup
+constexpr int kTcThreads = 3 * kWgThreads;  // the producer's warpgroup and two consumers
 
-constexpr int kBT = 64;  // q rows of a D/dQ block, keys of a dK/dV block and of a k tile
-
-// q rows of a dK/dV q tile: 32 at hd 128 and 192 keeps S^T and dP^T at 16
-// accumulators each beside the 128 (96 at hd 192, col_split) of dK and dV
+// D/dQ: 128 q rows a block (64 a consumer), K/V tiles of 128 keys up to hd
+// 64 and of 64 above (S, dP and dQ's accumulators must fit 240 registers)
 template <int HD>
-__host__ __device__ constexpr int dkdv_qrows() { return HD >= 128 ? 32 : 64; }
+struct DqTiles {
+  static constexpr int BQ = 128;
+  static constexpr int BN = HD <= 64 ? 128 : 64;
+  static constexpr int STAGES = HD > 128 ? 2 : 3;
+  static constexpr int Q_ELEMS = BQ * HD;
+  static constexpr int KV_ELEMS = BN * HD;
+  static constexpr int BARRIERS = 1 + 3 * STAGES;
+  static constexpr int BYTES = 1024 + 2 * (2 * Q_ELEMS + 2 * STAGES * KV_ELEMS) + 8 * BARRIERS;
+};
 
-// blocks that share one tile's output columns: two at hd 192, each owning
-// half of dQ's (or of dK's and dV's) columns and forming S and dP over the
-// whole head dim for itself, so that its accumulators stay at the size of
-// hd 96's
+// dK/dV: 128 keys a block (64 a consumer), q tiles of 64 rows. At hd 192
+// dK and dV together would take 192 accumulators a thread, so a block takes
+// 64 keys and its two consumers split the work: one forms S^T and dV, the
+// other S^T, dP^T and dK (SPLIT).
 template <int HD>
-__host__ __device__ constexpr int col_split() { return HD > 128 ? 2 : 1; }
+struct DkvTiles {
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BK = SPLIT ? 64 : 128;
+  static constexpr int BQ = 64;
+  static constexpr int STAGES = HD > 128 ? 2 : 3;
+  static constexpr int KV_ELEMS = BK * HD;
+  static constexpr int Q_ELEMS = BQ * HD;
+  static constexpr int BARRIERS = 1 + 2 * STAGES;
+  static constexpr int BYTES = 1024 + 2 * (2 * KV_ELEMS + 2 * STAGES * Q_ELEMS) +
+                               4 * 2 * STAGES * BQ + 8 * BARRIERS;
+};
 
-template <int HD>
-constexpr int dq_bf16_smem_bytes() {  // Q, dO, two stages of K and V
-  return 6 * kBT * tc_pitch<HD>() * 2;
-}
-template <int HD>
-constexpr int dkdv_bf16_smem_bytes() {  // K, V, two stages of Q and dO, of lse' and D
-  return (2 * kBT + 4 * dkdv_qrows<HD>()) * tc_pitch<HD>() * 2 + 4 * dkdv_qrows<HD>() * 4;
-}
-
-// D, lse' and dQ of one (b, head, 64-row q tile); the tile index is
+// D, lse' and dQ of one (b, head, 128-row q tile); the tile index is
 // blockIdx.z, heaviest causal tile first
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, float* __restrict__ scratch,
-    bf16* __restrict__ dq, int S, int Sk, int H, int KV, float scale, bool causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int P = tc_pitch<HD>();
-  constexpr int NCOL = HD / col_split<HD>();  // dQ columns of the block
-  constexpr int kSteps = HD / 16;  // k steps of Q K^T
-  constexpr int kNT = kBT / 8;     // 8-key tiles of a k tile
-  constexpr int kDT = NCOL / 8;    // 8-column tiles of the block's dQ
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBT][P]
-  bf16* dos = qs + kBT * P;                      // [kBT][P]
-  bf16* ks = dos + kBT * P;                      // [2][kBT][P]
-  bf16* vs = ks + 2 * kBT * P;                   // [2][kBT][P]
+__global__ void __launch_bounds__(kTcThreads, 1) attn_bwd_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+    float* __restrict__ scratch, int B, int S, int Sk, int H, int KV, float scale, bool causal) {
+  using T = Tile<HD>;
+  using F = DqTiles<HD>;
+  constexpr int BQ = F::BQ, BN = F::BN, ST = F::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(align_smem(smem_raw));  // [NP][BQ][PC]
+  bf16* dos = qs + F::Q_ELEMS;                                 // [NP][BQ][PC]
+  bf16* ks = dos + F::Q_ELEMS;                                 // [ST][NP][BN][PC]
+  bf16* vs = ks + ST * F::KV_ELEMS;                            // [ST][NP][BN][PC]
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(vs + ST * F::KV_ELEMS);
+  uint64_t* k_full = qd_full + 1;  // [ST]
+  uint64_t* v_full = k_full + ST;  // [ST]
+  uint64_t* empty = v_full + ST;   // [ST]
 
-  const int n_qt = (S + kBT - 1) / kBT;
+  const int n_qt = (S + BQ - 1) / BQ;
   const int qt = causal ? n_qt - 1 - static_cast<int>(blockIdx.z) : blockIdx.z;
-  const int h = blockIdx.x / col_split<HD>(), b = blockIdx.y;
-  const int c0 = (blockIdx.x % col_split<HD>()) * NCOL;  // the block's first dQ column
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * BQ;
+  // k tiles at or below the diagonal; every one of the Sk keys' tiles when
+  // non-causal. The ring walks them twice.
+  int n_kt = (Sk + BN - 1) / BN;
+  if (causal) n_kt = min(n_kt, (q0 + BQ - 1) / BN + 1);
+  const int wg = threadIdx.x / kWgThreads;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&tk);
+    prefetch_map(&tv);
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_tx(qd_full, 2 * F::Q_ELEMS * 2);
+      for (int p = 0; p < T::NP; ++p)
+        for (int r = 0; r < BQ; r += 64) {
+          tma_load(qs + (p * BQ + r) * T::PC, &tq, qd_full, p * T::PC, h, q0 + r, b);
+          tma_load(dos + (p * BQ + r) * T::PC, &tdo, qd_full, p * T::PC, h, q0 + r, b);
+        }
+      for (int it = 0; it < 2 * n_kt; ++it) {
+        const int s = it % ST;
+        const int k0 = (it < n_kt ? it : it - n_kt) * BN;
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        bf16* kst = ks + s * F::KV_ELEMS;
+        bf16* vst = vs + s * F::KV_ELEMS;
+        mbar_arrive_tx(&k_full[s], F::KV_ELEMS * 2);
+        for (int p = 0; p < T::NP; ++p)
+          for (int r = 0; r < BN; r += 64)
+            tma_load(kst + (p * BN + r) * T::PC, &tk, &k_full[s], p * T::PC, kvh, k0 + r, b);
+        mbar_arrive_tx(&v_full[s], F::KV_ELEMS * 2);
+        for (int p = 0; p < T::NP; ++p)
+          for (int r = 0; r < BN; r += 64)
+            tma_load(vst + (p * BN + r) * T::PC, &tv, &v_full[s], p * T::PC, kvh, k0 + r, b);
+      }
+    }
+    return;
+  }
+
+  regs_inc<240>();
+  const int cw = wg - 1;  // rows q0 + 64 cw ..
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = qt * kBT;
-  const int row0 = q0 + warp * 16;
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const bf16* qb = q + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const bf16* dob = dout + (static_cast<int64_t>(b) * S * H + h) * HD;
-  const bf16* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
-  const bf16* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  const int row0 = q0 + 64 * cw + 16 * warp;
+  const int wg_last = q0 + 64 * cw + 63;
+  const bf16* qw = qs + 64 * cw * T::PC;
+  const bf16* dow = dos + 64 * cw * T::PC;
   const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
   float* D_out = scratch + stat;
-  float* lse2_out = scratch + static_cast<int64_t>(gridDim.y) * H * S + stat;
+  float* lse2_out = scratch + static_cast<int64_t>(B) * H * S + stat;
   const float scale_log2 = scale * kLog2e;
 
-  // k tiles at or below the diagonal; every one of the Sk keys' tiles when
-  // non-causal
-  const int n_kt = causal ? qt + 1 : (Sk + kBT - 1) / kBT;
-  tc_load_rows<HD, kBT>(qs, qb, q_stride, q0, S);
-  tc_load_rows<HD, kBT>(dos, dob, q_stride, q0, S);
-  tc_load_rows<HD, kBT>(ks, kb, kv_stride, 0, Sk);
-  tc_load_rows<HD, kBT>(vs, vb, kv_stride, 0, Sk);
-  cp_async_commit();
-
-  // the lane's rows g and g + 8 of the warp: -(lse log2 e), then -(lse' log2 e)
+  // the lane's rows g and g + 8: -(lse log2 e), then -(lse' log2 e)
   float ml[2], l[2] = {0.0f, 0.0f}, pd[2] = {0.0f, 0.0f}, Dr[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     ml[r] = row < S ? -lse[stat + row] * kLog2e : 0.0f;
   }
-  float acc[kDT][4];  // dQ: rows g and g + 8, columns 8n + 2t, 8n + 2t + 1
+  float acc[HD / 2];  // dQ
 #pragma unroll
-  for (int n = 0; n < kDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
+  float sc[BN / 2], dp[BN / 2];  // S and dP of the tile in hand
+  // Q and dO as the register A operands of S and dP up to hd 128 (their B,
+  // K and V, alone then come from shared memory: an m64n64k16 product with
+  // both operands there reads shared memory as fast as it can deliver)
+  constexpr bool kQRegs = HD <= 128;
+  uint32_t qf[kQRegs ? T::kSteps : 1][4], dof[kQRegs ? T::kSteps : 1][4];
 
-  // ldmatrix addresses: lane supplies row (lane % 8) of matrix lane / 8. A
-  // fragments (and B fragments through .trans) take matrices in the order
-  // (rows 0-7, cols 0-7), (rows 8-15, cols 0-7), (rows 0-7, cols 8-15), ...;
-  // B fragments of an n-major tile (rows 0-7, cols 0-7), (rows 0-7, cols 8-15), ...
-  const int lm_r = lane % 8, lm_m = lane / 8;
-  const int a_off = (lm_r + 8 * (lm_m % 2)) * P + 8 * (lm_m / 2);
-  const int b_off = (lm_r + 8 * (lm_m / 2)) * P + 8 * (lm_m % 2);
-  const bf16* qw = qs + warp * 16 * P;
-  const bf16* dow = dos + warp * 16 * P;
-
-  // walk 1 over the k tiles (it < n_kt), then walk 2 (it >= n_kt)
-  for (int it = 0; it < 2 * n_kt; ++it) {
-    const int stage = it & 1;
-    if (it + 1 < 2 * n_kt) {  // copy the next tile while this one is used
-      const int nk = it + 1 < n_kt ? it + 1 : it + 1 - n_kt;
-      const int nxt = (it + 1) & 1;
-      tc_load_rows<HD, kBT>(ks + nxt * kBT * P, kb, kv_stride, nk * kBT, Sk);
-      tc_load_rows<HD, kBT>(vs + nxt * kBT * P, vb, kv_stride, nk * kBT, Sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // The ring holds walk 1's tiles (ring index kt), then walk 2's (n_kt +
+  // kt). The warpgroup forms the n_my tiles of each walk that hold a key at
+  // or below one of its rows; it waits for the others and hands them back.
+  const int n_my = causal ? min(n_kt, wg_last / BN + 1) : n_kt;
+  const int total = 2 * n_my;
+  auto ring = [&](int i) __attribute__((always_inline)) { return i < n_my ? i : n_kt + i - n_my; };
+  auto release = [&](int r) __attribute__((always_inline)) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[r % ST]);
+  };
+  int r_seen = -1;  // the last ring index issued or handed back
+  // hands back the tiles before ring index r that the warpgroup skips
+  auto skip_to = [&](int r) __attribute__((always_inline)) {
+    for (int x = r_seen + 1; x < r; ++x) {
+      mbar_wait(&k_full[x % ST], (x / ST) & 1);
+      release(x);
     }
-    __syncthreads();
-    const bool walk2 = it >= n_kt;
-    const int k0 = (walk2 ? it - n_kt : it) * kBT;
-    if (it == n_kt) {  // D and lse' from walk 1's sums, over the quad
+    r_seen = r;
+  };
+  // S = Q K^T and dP = dO V^T of ring tile r, for the warpgroup's 64 rows,
+  // on a wgmma group each
+  auto issue_sdp = [&](int r, float (&s_)[BN / 2], float (&d_)[BN / 2]) __attribute__((always_inline)) {
+    const int st = r % ST;
+    const uint32_t par = (r / ST) & 1;
+    const bf16* kst = ks + st * F::KV_ELEMS;
+    const bf16* vst = vs + st * F::KV_ELEMS;
+    skip_to(r);
+    mbar_wait(&k_full[st], par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::kSteps; ++kk) {
+      if constexpr (kQRegs)
+        wgmma_rs_k<BN>(s_, qf[kk], desc_k<HD>(kst, BN, kk), kk > 0);
+      else
+        wgmma_ss<BN>(s_, desc_k<HD>(qw, BQ, kk), desc_k<HD>(kst, BN, kk), kk > 0);
+    }
+    wgmma_commit();
+    mbar_wait(&v_full[st], par);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < T::kSteps; ++kk) {
+      if constexpr (kQRegs)
+        wgmma_rs_k<BN>(d_, dof[kk], desc_k<HD>(vst, BN, kk), kk > 0);
+      else
+        wgmma_ss<BN>(d_, desc_k<HD>(dow, BQ, kk), desc_k<HD>(vst, BN, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // tile i from its S and dP: walk 1 adds to the sums, walk 2 issues dQ += dS K
+  auto process = [&](int i, float (&s_)[BN / 2], float (&d_)[BN / 2]) __attribute__((always_inline)) {
+    const bool walk2 = i >= n_my;
+    const int k0 = (walk2 ? i - n_my : i) * BN;
+    if (i == n_my) {  // D and lse' from walk 1's sums, over the quad
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -538,302 +621,342 @@ __global__ void __launch_bounds__(kTcThreads) attn_bwd_dq_bf16_kernel(
           Dr[r] = pd[r] / l[r];
           ml[r] -= log2f(l[r]);
         }
-        if (c0 == 0 && t == 0 && row < S) {
+        if (t == 0 && row < S) {
           D_out[row] = Dr[r];
           lse2_out[row] = -ml[r] * kLn2;
         }
       }
     }
-    const bf16* kst = ks + stage * kBT * P;
-    const bf16* vst = vs + stage * kBT * P;
-
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows and the tile's 64 keys
-    float s[kNT][4], dp[kNT][4];
+    // P = 2^(s scale log2 e - lse log2 e); s_[4j + e] is row g + 8 (e >> 1),
+    // key 8j + 2t + (e & 1). Masked entries are 0. dP is still on the
+    // tensor cores meanwhile.
+    const bool masked = k0 + BN > Sk || (causal && k0 + BN - 1 > row0);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, qw + a_off + 16 * kk);
-      ldmatrix_x4(da, dow + a_off + 16 * kk);
-#pragma unroll
-      for (int jp = 0; jp < kNT / 2; ++jp) {
-        uint32_t kf[4], vf[4];  // B fragments of key tiles 2 jp and 2 jp + 1
-        ldmatrix_x4(kf, kst + 16 * jp * P + b_off + 16 * kk);
-        ldmatrix_x4(vf, vst + 16 * jp * P + b_off + 16 * kk);
-        mma_bf16(s[2 * jp], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * jp + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * jp], da, vf[0], vf[1]);
-        mma_bf16(dp[2 * jp + 1], da, vf[2], vf[3]);
-      }
-    }
-
-    // P = 2^(s scale log2 e - lse log2 e); s[.][0..1] are row g, s[.][2..3]
-    // row g + 8. Masked entries are 0.
-    const bool masked = k0 + kBT > Sk || (causal && k0 + kBT - 1 > row0);
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = exp2_ftz(fmaf(s[j][e], scale_log2, ml[e >> 1]));
+        float p = exp2_ftz(fmaf(s_[4 * j + e], scale_log2, ml[e >> 1]));
         if (masked) {
           const int kpos = k0 + 8 * j + 2 * t + (e & 1);
           const int qpos = row0 + g + 8 * (e >> 1);
           if (kpos >= Sk || (causal && kpos > qpos)) p = 0.0f;
         }
-        s[j][e] = p;
+        s_[4 * j + e] = p;
       }
-
-    if (!walk2) {
+    fence_regs(s_);
+    wgmma_wait<0>();  // dP
+    fence_regs(d_);
+    if (!walk2) {  // the sums in 4 independent chains a row
+      float lc[2][4] = {}, pc[2][4] = {};
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          l[e >> 1] += s[j][e];
-          pd[e >> 1] = fmaf(s[j][e], dp[j][e], pd[e >> 1]);
-        }
-    } else {
-      // dS = P (dP - D) in bf16 as the A operand of dQ += dS K, 16 keys a step
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-        uint32_t a[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {  // key tiles 2 kk and 2 kk + 1
-          const float* sj = s[2 * kk + half];
-          const float* dj = dp[2 * kk + half];
-          a[2 * half] = pack_bf16(sj[0] * (dj[0] - Dr[0]), sj[1] * (dj[1] - Dr[0]));
-          a[2 * half + 1] = pack_bf16(sj[2] * (dj[2] - Dr[1]), sj[3] * (dj[3] - Dr[1]));
+          lc[e >> 1][j % 4] += s_[4 * j + e];
+          pc[e >> 1][j % 4] = fmaf(s_[4 * j + e], d_[4 * j + e], pc[e >> 1][j % 4]);
         }
 #pragma unroll
-        for (int np = 0; np < kDT / 2; ++np) {
-          uint32_t kf[4];  // B fragments of dQ's column tiles 2 np and 2 np + 1
-          ldmatrix_x4_trans(kf, kst + 16 * kk * P + a_off + c0 + 16 * np);
-          mma_bf16(acc[2 * np], a, kf[0], kf[1]);
-          mma_bf16(acc[2 * np + 1], a, kf[2], kf[3]);
-        }
+      for (int r = 0; r < 2; ++r) {
+        l[r] += (lc[r][0] + lc[r][1]) + (lc[r][2] + lc[r][3]);
+        pd[r] += (pc[r][0] + pc[r][1]) + (pc[r][2] + pc[r][3]);
       }
-    }
-    __syncthreads();  // the stage is consumed before the next copy into it
-  }
-
-  // dQ = scale acc, staged through the warp's own rows of the Q tile
-  bf16* ow = qs + warp * 16 * P;
+      fence_regs(l);  // formed here, not sunk into the next tile's products
+      fence_regs(pd);
+    } else {
+      // dS = P (dP - D) in bf16 as the register A operand of dQ += dS K
+      uint32_t a[BN / 16][4];
 #pragma unroll
-  for (int n = 0; n < kDT; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(ow + g * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    *reinterpret_cast<__nv_bfloat162*>(ow + (g + 8) * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // key chunks 2 kk and 2 kk + 1
+          const float* sj = s_ + 4 * (2 * kk + half);
+          const float* dj = d_ + 4 * (2 * kk + half);
+          a[kk][2 * half] = pack_bf16(sj[0] * (dj[0] - Dr[0]), sj[1] * (dj[1] - Dr[0]));
+          a[kk][2 * half + 1] = pack_bf16(sj[2] * (dj[2] - Dr[1]), sj[3] * (dj[3] - Dr[1]));
+        }
+      const bf16* kst = ks + (ring(i) % ST) * F::KV_ELEMS;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<HD>(acc, a[kk], desc_mn<HD>(kst, BN, kk), 1);
+    }
+    wgmma_commit();  // walk 1: an empty group
+  };
+  // tile by tile: hand back the last tile once its dQ is done, then S and
+  // dP of this one, then its walk's work
+  mbar_wait(qd_full, 0);
+  if constexpr (kQRegs) {
+    load_a<HD>(qs, BQ, 64 * cw, qf);
+    load_a<HD>(dos, BQ, 64 * cw, dof);
   }
-  __syncwarp();
-  constexpr int kChunks = NCOL / 8;
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, d0 = (c % kChunks) * 8;
-    if (row0 + r < S)
-      *reinterpret_cast<uint4*>(dq + ((static_cast<int64_t>(b) * S + row0 + r) * H + h) * HD +
-                                c0 + d0) = *reinterpret_cast<const uint4*>(ow + r * P + d0);
+  for (int i = 0; i < total; ++i) {
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (i > 0) release(ring(i - 1));
+    issue_sdp(ring(i), sc, dp);
+    wgmma_wait<1>();  // S
+    fence_regs(sc);
+    process(i, sc, dp);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(ring(total - 1));
+  skip_to(2 * n_kt);
+
+  // dQ = scale acc, staged through the warpgroup's own rows of the Q tile
+  stage_tile<HD>(qs, BQ, 64 * cw, acc, scale, scale);
+  fence_proxy_async();
+  named_sync(1 + cw, kWgThreads);
+  if (tid == 0) {
+    for (int p = 0; p < T::NP; ++p)
+      tma_store(&tdq, qs + (p * BQ + 64 * cw) * T::PC, p * T::PC, h, q0 + 64 * cw, b);
+    tma_store_wait();
   }
 }
 
-// dK and dV of one (b, kv head, 64-key tile); the tile index is blockIdx.z,
+// dK and dV of one (b, kv head, key tile); the tile index is blockIdx.z,
 // heaviest causal tile first
 template <int HD>
-__global__ void __launch_bounds__(kTcThreads) attn_bwd_dkdv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ scratch, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int Sk, int H, int KV, float scale, bool causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int P = tc_pitch<HD>();
-  constexpr int QR = dkdv_qrows<HD>();  // q rows of a q tile
-  constexpr int NCOL = HD / col_split<HD>();  // dK and dV columns of the block
-  constexpr int kSteps = HD / 16;       // k steps of K Q^T
-  constexpr int kNT = QR / 8;           // 8-row tiles of a q tile
-  constexpr int kDT = NCOL / 8;         // 8-column tiles of the block's dK and dV
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBT][P]
-  bf16* vs = ks + kBT * P;                       // [kBT][P]
-  bf16* qs = vs + kBT * P;                       // [2][QR][P]
-  bf16* dos = qs + 2 * QR * P;                   // [2][QR][P]
-  float* ls = reinterpret_cast<float*>(dos + 2 * QR * P);  // [2][QR]: -(lse' log2 e)
-  float* Ds = ls + 2 * QR;                                  // [2][QR]
+__global__ void __launch_bounds__(kTcThreads, 1) attn_bwd_dkdv_bf16_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
+    const float* __restrict__ scratch, int B, int S, int Sk, int H, int KV, float scale,
+    bool causal) {
+  using T = Tile<HD>;
+  using F = DkvTiles<HD>;
+  constexpr int BK = F::BK, BQ = F::BQ, ST = F::STAGES;
+  constexpr bool SPLIT = F::SPLIT;
+  extern __shared__ uint8_t smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(align_smem(smem_raw));  // [NP][BK][PC]
+  bf16* vs = ks + F::KV_ELEMS;                                 // [NP][BK][PC]
+  bf16* qs = vs + F::KV_ELEMS;                                 // [ST][NP][BQ][PC]
+  bf16* dos = qs + ST * F::Q_ELEMS;                            // [ST][NP][BQ][PC]
+  float* ls = reinterpret_cast<float*>(dos + ST * F::Q_ELEMS);  // [ST][BQ]: -(lse' log2 e)
+  float* Ds = ls + ST * BQ;                                     // [ST][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Ds + ST * BQ);
+  uint64_t* full = kv_full + 1;  // [ST]
+  uint64_t* empty = full + ST;   // [ST]
 
-  const int kvh = blockIdx.x / col_split<HD>(), b = blockIdx.y, kt = blockIdx.z;
-  const int c0 = (blockIdx.x % col_split<HD>()) * NCOL;  // the block's first dK, dV column
+  const int kvh = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
   const int G = H / KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = kt * kBT;
-  const int kw = k0 + warp * 16;  // the warp's first key
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * Sk * KV + kvh) * HD;
+  const int k0 = kt * BK;
   const float* D_in = scratch;
-  const float* lse2_in = scratch + static_cast<int64_t>(gridDim.y) * H * S;
-  const float scale_log2 = scale * kLog2e;
-
+  const float* lse2_in = scratch + static_cast<int64_t>(B) * H * S;
   // the walk: it = g nq + (qt - qt0) over the G query heads and the q tiles
   // that hold a row at or below the diagonal of this key tile (every q
   // tile, non-causal)
-  const int n_qt = (S + QR - 1) / QR;
-  const int qt0 = causal ? k0 / QR : 0;
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
   const int nq = n_qt - qt0;
   const int n_it = G * nq;
+  const int wg = threadIdx.x / kWgThreads;
 
-  tc_load_rows<HD, kBT>(ks, k + kv_off, kv_stride, k0, Sk);
-  tc_load_rows<HD, kBT>(vs, v + kv_off, kv_stride, k0, Sk);
-  {
-    const int64_t q_off = (static_cast<int64_t>(b) * S * H + kvh * G) * HD;
-    tc_load_rows<HD, QR>(qs, q + q_off, q_stride, qt0 * QR, S);
-    tc_load_rows<HD, QR>(dos, dout + q_off, q_stride, qt0 * QR, S);
-    cp_async_commit();
-    if (threadIdx.x < QR) {
-      const int i = qt0 * QR + threadIdx.x;
-      const int64_t so = (static_cast<int64_t>(b) * H + kvh * G) * S + i;
-      ls[threadIdx.x] = i < S ? -lse2_in[so] * kLog2e : 0.0f;
-      Ds[threadIdx.x] = i < S ? D_in[so] : 0.0f;
+  if (threadIdx.x == 0) {
+    prefetch_map(&tq);
+    prefetch_map(&tdo);
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer warp: Q and dO by TMA, lse' and D by its lanes
+    regs_dec<24>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32) {
+      if (lane == 0) {
+        mbar_arrive_tx(kv_full, 2 * F::KV_ELEMS * 2);
+        for (int p = 0; p < T::NP; ++p)
+          for (int r = 0; r < BK; r += 64) {
+            tma_load(ks + (p * BK + r) * T::PC, &tk, kv_full, p * T::PC, kvh, k0 + r, b);
+            tma_load(vs + (p * BK + r) * T::PC, &tv, kv_full, p * T::PC, kvh, k0 + r, b);
+          }
+      }
+      int h = kvh * G, qt = qt0;  // ring tile it's head and q tile
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % ST;
+        const int i0 = qt * BQ;
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+        const int64_t stat = (static_cast<int64_t>(b) * H + h) * S;
+        for (int r = lane; r < BQ; r += 32) {
+          const int i = i0 + r;
+          ls[s * BQ + r] = i < S ? -lse2_in[stat + i] * kLog2e : 0.0f;
+          Ds[s * BQ + r] = i < S ? D_in[stat + i] : 0.0f;
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(&full[s], 2 * F::Q_ELEMS * 2);
+          for (int p = 0; p < T::NP; ++p) {
+            tma_load(qs + s * F::Q_ELEMS + p * BQ * T::PC, &tq, &full[s], p * T::PC, h, i0, b);
+            tma_load(dos + s * F::Q_ELEMS + p * BQ * T::PC, &tdo, &full[s], p * T::PC, h, i0, b);
+          }
+        } else {
+          mbar_arrive(&full[s]);
+        }
+        if (++qt == n_qt) {
+          qt = qt0;
+          ++h;
+        }
+      }
+    }
+    return;
   }
 
-  float dka[kDT][4], dva[kDT][4];  // keys g and g + 8 of the warp, columns 8n + 2t, + 1
-#pragma unroll
-  for (int n = 0; n < kDT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
+  regs_inc<240>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the warpgroup's keys: its own 64 (both of SPLIT's warpgroups the block's 64)
+  const int kw = SPLIT ? k0 : k0 + 64 * cw;
+  const int kwarp = kw + 16 * warp;  // the warp's first key
+  const bf16* kwp = ks + (kw - k0) * T::PC;
+  const bf16* vwp = vs + (kw - k0) * T::PC;
+  // SPLIT: warpgroup 0 forms dV, warpgroup 1 dK
+  const bool want_dv = !SPLIT || cw == 0;
+  const bool want_dk = !SPLIT || cw == 1;
+  const float scale_log2 = scale * kLog2e;
 
-  const int lm_r = lane % 8, lm_m = lane / 8;
-  const int a_off = (lm_r + 8 * (lm_m % 2)) * P + 8 * (lm_m / 2);
-  const int b_off = (lm_r + 8 * (lm_m / 2)) * P + 8 * (lm_m % 2);
-  const bf16* kwp = ks + warp * 16 * P;
-  const bf16* vwp = vs + warp * 16 * P;
+  float acc_v[HD / 2];                 // dV (SPLIT: dV or dK)
+  float acc_k[SPLIT ? 1 : HD / 2];     // dK
+  // dK's accumulator: acc_k, or SPLIT's dK warpgroup's acc_v
+  auto& acc_dk = [&]() __attribute__((always_inline)) -> float (&)[HD / 2] {
+    if constexpr (SPLIT)
+      return acc_v;
+    else
+      return acc_k;
+  }();
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc_v[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (SPLIT ? 1 : HD / 2); ++i) acc_k[i] = 0.0f;
+  mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n_it; ++it) {
-    const int stage = it & 1;
-    const bool more = it + 1 < n_it;
-    float next_l = 0.0f, next_d = 0.0f;
-    if (more) {  // copy the next q tile while this one is used
-      const int h = kvh * G + (it + 1) / nq;
-      const int nq0 = (qt0 + (it + 1) % nq) * QR;
-      const int nxt = (it + 1) & 1;
-      const int64_t q_off = (static_cast<int64_t>(b) * S * H + h) * HD;
-      tc_load_rows<HD, QR>(qs + nxt * QR * P, q + q_off, q_stride, nq0, S);
-      tc_load_rows<HD, QR>(dos + nxt * QR * P, dout + q_off, q_stride, nq0, S);
-      cp_async_commit();
-      const int i = nq0 + static_cast<int>(threadIdx.x);
-      if (threadIdx.x < QR && i < S) {  // into registers now, to shared memory below
-        const int64_t so = (static_cast<int64_t>(b) * H + h) * S + i;
-        next_l = -lse2_in[so] * kLog2e;
-        next_d = D_in[so];
-      }
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = (qt0 + it % nq) * QR;
-    // a warp whose keys all lie above every row of the tile has nothing to add
-    if (!(causal && q0 + QR - 1 < kw)) {
-      const bf16* qst = qs + stage * QR * P;
-      const bf16* dost = dos + stage * QR * P;
-      const float* lst = ls + stage * QR;
-      const float* dst = Ds + stage * QR;
+    const int s = it % ST;
+    const uint32_t par = (it / ST) & 1;
+    const int i0 = (qt0 + it % nq) * BQ;
+    mbar_wait(&full[s], par);
+    // a warpgroup whose keys all lie above every row of the tile has nothing to add
+    if (!(causal && i0 + BQ - 1 < kw)) {
+      const bf16* qst = qs + s * F::Q_ELEMS;
+      const bf16* dost = dos + s * F::Q_ELEMS;
+      const float* lst = ls + s * BQ;
+      const float* dst = Ds + s * BQ;
 
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 keys and the tile's rows
-      float st[kNT][4], dpt[kNT][4];
+      // S^T = K Q^T and dP^T = V dO^T for the warpgroup's 64 keys and the
+      // tile's rows, on a wgmma group each
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
+      for (int kk = 0; kk < T::kSteps; ++kk)
+        wgmma_ss<BQ>(st, desc_k<HD>(kwp, BK, kk), desc_k<HD>(qst, BQ, kk), kk > 0);
+      wgmma_commit();
+      if (want_dk) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, kwp + a_off + 16 * kk);
-        ldmatrix_x4(va, vwp + a_off + 16 * kk);
-#pragma unroll
-        for (int jp = 0; jp < kNT / 2; ++jp) {
-          uint32_t qf[4], df[4];  // B fragments of row tiles 2 jp and 2 jp + 1
-          ldmatrix_x4(qf, qst + 16 * jp * P + b_off + 16 * kk);
-          ldmatrix_x4(df, dost + 16 * jp * P + b_off + 16 * kk);
-          mma_bf16(st[2 * jp], ka, qf[0], qf[1]);
-          mma_bf16(st[2 * jp + 1], ka, qf[2], qf[3]);
-          mma_bf16(dpt[2 * jp], va, df[0], df[1]);
-          mma_bf16(dpt[2 * jp + 1], va, df[2], df[3]);
-        }
+        for (int kk = 0; kk < T::kSteps; ++kk)
+          wgmma_ss<BQ>(dpt, desc_k<HD>(vwp, BK, kk), desc_k<HD>(dost, BQ, kk), kk > 0);
       }
+      wgmma_commit();  // SPLIT's dV warpgroup: an empty group
+      wgmma_wait<1>();  // S^T
+      fence_regs(st);
 
-      // P^T and dS^T: st[j][e] is key kw + g + 8 (e >> 1), row q0 + 8j + 2t + (e & 1)
-      const bool masked = q0 + QR > S || (causal && q0 < kw + 15);
+      // P^T: st[4j + e] is key kwarp + g + 8 (e >> 1), row i0 + 8j + 2t + (e & 1)
+      const bool masked = i0 + BQ > S || (causal && i0 < kwarp + 15);
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
+      for (int j = 0; j < BQ / 8; ++j) {
         const float2 lj = *reinterpret_cast<const float2*>(lst + 8 * j + 2 * t);
-        const float2 dj = *reinterpret_cast<const float2*>(dst + 8 * j + 2 * t);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float p = exp2_ftz(fmaf(st[j][e], scale_log2, (e & 1) ? lj.y : lj.x));
+          float p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, (e & 1) ? lj.y : lj.x));
           if (masked) {
-            const int qpos = q0 + 8 * j + 2 * t + (e & 1);
-            const int kpos = kw + g + 8 * (e >> 1);
+            const int qpos = i0 + 8 * j + 2 * t + (e & 1);
+            const int kpos = kwarp + g + 8 * (e >> 1);
             if (qpos >= S || (causal && kpos > qpos)) p = 0.0f;
           }
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dj.y : dj.x));
+          st[4 * j + e] = p;
         }
       }
-
-      // dV += P^T dO and dK += dS^T Q, 16 rows a step, P^T and dS^T in bf16
+      // dV += P^T dO, 16 rows a k step, P^T in bf16, while dP^T finishes
+      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-        uint32_t pa[4], sa[4];
+      for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {  // row tiles 2 kk and 2 kk + 1
-          const float* pj = st[2 * kk + half];
-          const float* sj = dpt[2 * kk + half];
-          pa[2 * half] = pack_bf16(pj[0], pj[1]);
-          pa[2 * half + 1] = pack_bf16(pj[2], pj[3]);
-          sa[2 * half] = pack_bf16(sj[0], sj[1]);
-          sa[2 * half + 1] = pack_bf16(sj[2], sj[3]);
+        for (int half = 0; half < 2; ++half) {  // row chunks 2 kk and 2 kk + 1
+          const float* pj = st + 4 * (2 * kk + half);
+          pa[kk][2 * half] = pack_bf16(pj[0], pj[1]);
+          pa[kk][2 * half + 1] = pack_bf16(pj[2], pj[3]);
         }
+      fence_regs(acc_v);
+      wgmma_fence();
+      if (want_dv) {
 #pragma unroll
-        for (int np = 0; np < kDT / 2; ++np) {
-          uint32_t of[4], qf[4];  // B fragments of column tiles 2 np and 2 np + 1
-          ldmatrix_x4_trans(of, dost + 16 * kk * P + a_off + c0 + 16 * np);
-          ldmatrix_x4_trans(qf, qst + 16 * kk * P + a_off + c0 + 16 * np);
-          mma_bf16(dva[2 * np], pa, of[0], of[1]);
-          mma_bf16(dva[2 * np + 1], pa, of[2], of[3]);
-          mma_bf16(dka[2 * np], sa, qf[0], qf[1]);
-          mma_bf16(dka[2 * np + 1], sa, qf[2], qf[3]);
-        }
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<HD>(acc_v, pa[kk], desc_mn<HD>(dost, BQ, kk), 1);
       }
+      wgmma_commit();
+      if (want_dk) {
+        wgmma_wait<1>();  // dP^T
+        fence_regs(dpt);
+        // dS^T = P^T (dP^T - D), in bf16; dK += dS^T Q
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 dj = *reinterpret_cast<const float2*>(dst + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? dj.y : dj.x));
+        }
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float* sj = dpt + 4 * (2 * kk + half);
+            sa[kk][2 * half] = pack_bf16(sj[0], sj[1]);
+            sa[kk][2 * half + 1] = pack_bf16(sj[2], sj[3]);
+          }
+        fence_regs(acc_dk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<HD>(acc_dk, sa[kk], desc_mn<HD>(qst, BQ, kk), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
     }
-    __syncthreads();  // the stage is consumed before the next copy into it
-    if (more && threadIdx.x < QR) {
-      ls[((it + 1) & 1) * QR + threadIdx.x] = next_l;
-      Ds[((it + 1) & 1) * QR + threadIdx.x] = next_d;
-    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // dK = scale dka and dV = dva, staged through the warp's own rows of K and V
-  bf16* kout = ks + warp * 16 * P;
-  bf16* vout = vs + warp * 16 * P;
-#pragma unroll
-  for (int n = 0; n < kDT; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(kout + g * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
-    *reinterpret_cast<__nv_bfloat162*>(kout + (g + 8) * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
-    *reinterpret_cast<__nv_bfloat162*>(vout + g * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(dva[n][0], dva[n][1]);
-    *reinterpret_cast<__nv_bfloat162*>(vout + (g + 8) * P + 8 * n + 2 * t) =
-        __floats2bfloat162_rn(dva[n][2], dva[n][3]);
-  }
-  __syncwarp();
-  constexpr int kChunks = NCOL / 8;
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, d0 = (c % kChunks) * 8;
-    if (kw + r < Sk) {
-      const int64_t off = kv_off + static_cast<int64_t>(kw + r) * kv_stride + c0 + d0;
-      *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(kout + r * P + d0);
-      *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(vout + r * P + d0);
+  // dK = scale acc_k and dV = acc_v, staged through the warpgroup's rows of
+  // K and V and stored by TMA (keys past Sk are not written). SPLIT's two
+  // warpgroups read both tiles until both are done.
+  if constexpr (SPLIT) {
+    named_sync(1, 2 * kWgThreads);
+    bf16* tile = want_dv ? vs : ks;
+    stage_tile<HD>(tile, BK, 0, acc_v, want_dv ? 1.0f : scale, want_dv ? 1.0f : scale);
+    fence_proxy_async();
+    named_sync(2 + cw, kWgThreads);
+    if (tid == 0) {
+      for (int p = 0; p < T::NP; ++p)
+        tma_store(want_dv ? &tdv : &tdk, tile + p * BK * T::PC, p * T::PC, kvh, k0, b);
+      tma_store_wait();
+    }
+  } else {
+    stage_tile<HD>(ks, BK, 64 * cw, acc_k, scale, scale);
+    stage_tile<HD>(vs, BK, 64 * cw, acc_v, 1.0f, 1.0f);
+    fence_proxy_async();
+    named_sync(1 + cw, kWgThreads);
+    if (tid == 0) {
+      for (int p = 0; p < T::NP; ++p) {
+        tma_store(&tdk, ks + (p * BK + 64 * cw) * T::PC, p * T::PC, kvh, kw, b);
+        tma_store(&tdv, vs + (p * BK + 64 * cw) * T::PC, p * T::PC, kvh, kw, b);
+      }
+      tma_store_wait();
     }
   }
 }
@@ -874,30 +997,34 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                 float* scratch, void* dq, void* dk, void* dv, int B, int S, int Sk, int H,
                 int KV, bool causal, cudaStream_t stream) {
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
+  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv;
+  int err = make_map<HD>(&tq, q, B, S, H);
+  if (err == 0) err = make_map<HD>(&tk, k, B, Sk, KV);
+  if (err == 0) err = make_map<HD>(&tv, v, B, Sk, KV);
+  if (err == 0) err = make_map<HD>(&tdo, dout, B, S, H);
+  if (err == 0) err = make_map<HD>(&tdq, dq, B, S, H);
+  if (err == 0) err = make_map<HD>(&tdk, dk, B, Sk, KV);
+  if (err == 0) err = make_map<HD>(&tdv, dv, B, Sk, KV);
+  if (err != 0) return err;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));  // float(hd ** -0.5)
-  const int n_qt = (S + kBT - 1) / kBT, n_kt = (Sk + kBT - 1) / kBT;
 
   auto dqk = attn_bwd_dq_bf16_kernel<HD>;  // D and lse', then dQ
-  constexpr int dq_bytes = dq_bf16_smem_bytes<HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dqk<<<dim3(H * col_split<HD>(), B, n_qt), kTcThreads, dq_bytes, stream>>>(
-      q_, k_, v_, do_, lse, scratch, static_cast<bf16*>(dq), S, Sk, H, KV, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int dq_bytes = DqTiles<HD>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_qt = (S + DqTiles<HD>::BQ - 1) / DqTiles<HD>::BQ;
+  dqk<<<dim3(H, B, n_qt), kTcThreads, dq_bytes, stream>>>(tq, tk, tv, tdo, tdq, lse, scratch, B,
+                                                          S, Sk, H, KV, scale, causal);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
 
   auto dkdv = attn_bwd_dkdv_bf16_kernel<HD>;  // with D and lse'
-  constexpr int dkdv_bytes = dkdv_bf16_smem_bytes<HD>();
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv<<<dim3(KV * col_split<HD>(), B, n_kt), kTcThreads, dkdv_bytes, stream>>>(
-      q_, k_, v_, do_, scratch, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, KV,
-      scale, causal);
+  constexpr int dkdv_bytes = DkvTiles<HD>::BYTES;
+  e = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int n_kt = (Sk + DkvTiles<HD>::BK - 1) / DkvTiles<HD>::BK;
+  dkdv<<<dim3(KV, B, n_kt), kTcThreads, dkdv_bytes, stream>>>(tq, tk, tv, tdo, tdk, tdv, scratch,
+                                                              B, S, Sk, H, KV, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

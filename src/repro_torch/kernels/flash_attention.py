@@ -21,17 +21,18 @@ The functions:
     ``repro/kernels/flash_attention.py`` (``flash_attention`` and its
     ``_kernel``); that source says what bounds it and how it is designed.
     The dtype selects the kernel: bfloat16 runs on the tensor cores
-    (``mma.sync`` bf16 products with float32 accumulators, P rounded to
-    bf16 for the P V product, K/V tiles in a ``cp.async`` ring), float32 on
-    CUDA cores in float32 throughout, as its 1e-4 contract asks. With
-    ``return_lse`` it also returns each row's log-sum-exp;
+    (``wgmma`` bf16 products with float32 accumulators, P rounded to bf16
+    as the register operand of the P V product, Q, K and V tiles loaded by
+    TMA on mbarriers from a producer warp), float32 on CUDA cores in
+    float32 throughout, as its 1e-4 contract asks. With ``return_lse`` it
+    also returns each row's log-sum-exp;
   * :func:`flash_attention_bwd_cuda` calls ``repro_torch::flash_attention_bwd``,
     whose body launches the backward kernels
     (``csrc/flash_attention_bwd.cu``): dq, dk, dv from q, k, v, do and the
     log-sum-exp, by recompute and with no atomics, for any key length that
     the forward takes. bfloat16 runs two
-    tensor-core kernels (``mma.sync`` bf16, dS and P rounded to bf16 as
-    A operands), float32 two CUDA-core kernels;
+    tensor-core kernels (``wgmma`` bf16 fed by TMA, dS and P rounded to
+    bf16 as register A operands), float32 two CUDA-core kernels;
   * :class:`FlashAttention` is the ``torch.autograd.Function`` of the two;
   * :func:`flash_attention_plain` is the plain PyTorch version:
     :func:`attend_chunked` for S > ``ATTN_CHUNK`` that divides into chunks,

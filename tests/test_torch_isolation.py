@@ -99,3 +99,20 @@ def test_served_processes_load_no_jax_and_no_repro(tmp_path, monkeypatch):
         assert "repro_torch.transport.codec" in r["modules"], r["argv"]
         bad = [m for m in r["modules"] if m.split(".")[0] in FORBIDDEN]
         assert not bad, (r["argv"], bad)
+
+
+def test_served_processes_load_no_torch(tmp_path, monkeypatch):
+    """The replica and client processes run the protocol stack, which needs
+    numpy and no tensor: none of them imports torch, whose import made up
+    most of a served cluster's start."""
+    from repro_torch.transport import ClusterConfig, run_served
+
+    reports = probed_env(tmp_path, monkeypatch)
+    cfg = ClusterConfig(n_replicas=3, n_clients=1, total_ops=64, batch_size=8,
+                        time_limit_s=45, trace=True)
+    assert run_served(cfg).result.committed_ops == cfg.total_ops
+    seen = read_reports(reports)
+    assert len(seen) == 4
+    for r in seen:
+        loaded = [m for m in r["modules"] if m.split(".")[0] == "torch"]
+        assert not loaded, (r["argv"], loaded[:5])

@@ -18,7 +18,8 @@ here, in plain torch, against the same limits the card holds them to:
   and its bf16 row rule; single TF32 products miss it by far, and so do
   C Bᵀ and dM in 3xTF32, over enough gradients.
 * K2 in bf16 rounds its unnormalised probabilities P to bf16, tile by tile
-  of 64 keys, for the P V product, and sums the rounded P. Measured as each
+  of 128 keys (64 at hd 192; 64 before the wgmma kernels), for the P V
+  product, and sums the rounded P. Measured as each
   output row's error over the row's magnitude against float32 on the same
   bf16 inputs, it stays within twice the bf16 plain version's, the limit of
   ``hold_k2``.
@@ -45,7 +46,14 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 K3_TOL = 1e-4      # hold_k3: atol = rtol
-K2_BLOCK = 64      # keys in one of K2's k tiles
+K2_BLOCK = 64      # keys in one of K2's k tiles before the wgmma kernels, and the backward's
+
+
+def k2_block(hd: int) -> int:
+    """Keys in one k tile of K2's wgmma forward (``FwdTiles::BN``): 128, and
+    64 at hd 192, where the output's 96 accumulators a thread leave no room
+    for a 128-key score tile."""
+    return 64 if hd > 128 else 128
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -316,9 +324,10 @@ def test_k3_backward_3xtf32_cb_and_dm_miss_the_limit():
     assert worst[False] > 1.0 and worst[True] < 0.5, worst
 
 
-def flash_emulated(q, k, v, causal: bool):
+def flash_emulated(q, k, v, causal: bool, block: int = K2_BLOCK):
     """K2's bf16 arithmetic: float32 scores of bf16 inputs, an online
-    softmax over 64-key tiles, P rounded to bf16 for P V, l the sum of the
+    softmax over tiles of ``block`` keys, P rounded to bf16 for P V (the
+    running max, and so the rounding, moves tile by tile), l the sum of the
     rounded P, float32 accumulators, the output rounded to bf16. Returns the
     output and each row's log-sum-exp m + ln l, (B,H,S)."""
     B, S, H, hd = q.shape
@@ -330,8 +339,8 @@ def flash_emulated(q, k, v, causal: bool):
     l = torch.zeros(B, H, S)
     acc = torch.zeros(B, H, S, hd)
     qpos = torch.arange(S)[:, None]
-    for k0 in range(0, S, K2_BLOCK):
-        kb, vb = kf[:, k0:k0 + K2_BLOCK], vf[:, k0:k0 + K2_BLOCK]
+    for k0 in range(0, S, block):
+        kb, vb = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
         s = torch.einsum("bqhd,bkhd->bhqk", qf, kb) * scale
         if causal:
             s = torch.where(torch.arange(k0, k0 + kb.shape[1])[None, :] <= qpos, s, -1e30)
@@ -365,6 +374,21 @@ def test_k2_bf16_p_holds_the_row_limit(B, S, H, KV, hd):
     assert got < 4 * 2.0 ** -8, got
 
 
+# the wgmma forward's tiles: 128 keys up to hd 128, 64 at hd 192; ragged S
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 512, 4, 2, 64), (1, 2048, 2, 2, 64),
+                                         (1, 300, 4, 2, 128), (1, 129, 4, 1, 192),
+                                         (2, 127, 4, 4, 16)])
+def test_k2_bf16_p_holds_the_row_limit_at_the_wgmma_tile(B, S, H, KV, hd):
+    rng = np.random.default_rng(S + H + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(np.float32)).bfloat16()
+               for n in (H, KV, KV))
+    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+    plain = row_err(fa.flash_attention_plain(q, k, v, causal=True), ref)
+    got = row_err(flash_emulated(q, k, v, causal=True, block=k2_block(hd))[0], ref)
+    assert got <= 2 * plain, (got, plain)
+    assert got < 4 * 2.0 ** -8, got
+
+
 # ---------------------------------------------------------------------------
 # K2's backward in bf16 (csrc/flash_attention_bwd.cu): products of bf16
 # operands are exact in float32; P is exp(s - lse) in float32; the D/dQ
@@ -381,11 +405,14 @@ def test_k2_bf16_p_holds_the_row_limit(B, S, H, KV, hd):
 BF16_ULP = 2.0 ** -8
 
 
-def flash_bwd_emulated(q, k, v, do, causal: bool, variant: str = "design"):
-    """(dq, dk, dv) in bf16 as K2's bf16 backward computes them (see above)."""
+def flash_bwd_emulated(q, k, v, do, causal: bool, variant: str = "design",
+                       fwd_block: int = K2_BLOCK, block: int = K2_BLOCK):
+    """(dq, dk, dv) in bf16 as K2's bf16 backward computes them (see above),
+    from the lse of a forward over tiles of ``fwd_block`` keys; the first
+    walk's sums l and sum P dP add up tiles of ``block`` keys in order."""
     B, S, H, hd = q.shape
     G = H // k.shape[2]
-    lse = flash_emulated(q, k, v, causal)[1]
+    lse = flash_emulated(q, k, v, causal, fwd_block)[1]
     kf, vf = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
     scale = hd ** -0.5
     keep = torch.ones(S, S, dtype=torch.bool)
@@ -395,8 +422,11 @@ def flash_bwd_emulated(q, k, v, do, causal: bool, variant: str = "design"):
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     if variant == "design":
-        l = p.sum(-1)
-        D = (p * dp).sum(-1) / l
+        l, pd = torch.zeros(B, H, S), torch.zeros(B, H, S)
+        for k0 in range(0, S, block):
+            l = l + p[..., k0:k0 + block].sum(-1)
+            pd = pd + (p * dp)[..., k0:k0 + block].sum(-1)
+        D = pd / l
         p = torch.where(keep, torch.exp(s - (lse + torch.log(l))[..., None]), 0.0)
     elif variant == "no_renorm":
         D = (p * dp).sum(-1)
@@ -427,15 +457,16 @@ def grad_row_err(got, ref, scale) -> float:
     return float((diff / ref.abs().amax(-1).clamp_min(scale * 1e-3)).max())
 
 
-def backward_over_limit(seed, B, S, H, KV, hd, causal, variant):
+def backward_over_limit(seed, B, S, H, KV, hd, causal, variant, fwd_block=K2_BLOCK):
     """Each of dq, dk, dv's worst row error over its limit, max(twice the
-    bf16 plain gradient's, one bf16 ulp): at most 1 holds the limit."""
+    bf16 plain gradient's, one bf16 ulp): at most 1 holds the limit. The lse
+    comes from a forward over tiles of ``fwd_block`` keys."""
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(B, S, n, hd)).astype(np.float32)).bfloat16()
                    for n in (H, KV, KV, H))
     ref = plain_grads(q.float(), k.float(), v.float(), do.float(), causal)
     plain = plain_grads(q, k, v, do, causal)
-    got = flash_bwd_emulated(q, k, v, do, causal, variant)
+    got = flash_bwd_emulated(q, k, v, do, causal, variant, fwd_block)
     scale = max(float(r.abs().max()) for r in ref)
     return [grad_row_err(g, r, scale) / max(2 * grad_row_err(w, r, scale), BF16_ULP)
             for g, w, r in zip(got, plain, ref)]
@@ -447,6 +478,18 @@ def backward_over_limit(seed, B, S, H, KV, hd, causal, variant):
     (1, 384, 4, 2, 16, False)])
 def test_k2_bf16_backward_holds_the_row_limit(B, S, H, KV, hd, causal):
     over = backward_over_limit(S + hd, B, S, H, KV, hd, causal, "design")
+    assert max(over) <= 1.0, over
+
+
+# the same cases, with the lse of the wgmma forward's tiles (128 keys, 64 at
+# hd 192), and the new tiles' edges: 127 and 129 keys, one row, hd 192
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (2, 64, 4, 4, 16, True), (1, 256, 4, 2, 64, True), (1, 130, 8, 2, 128, True),
+    (2, 200, 4, 2, 128, False), (1, 1, 2, 2, 32, True), (2, 96, 2, 1, 64, False),
+    (1, 384, 4, 2, 16, False), (1, 127, 4, 2, 64, True), (1, 129, 16, 1, 64, True),
+    (1, 257, 4, 1, 192, True), (1, 129, 2, 1, 192, False)])
+def test_k2_bf16_backward_holds_the_row_limit_at_the_wgmma_tile(B, S, H, KV, hd, causal):
+    over = backward_over_limit(S + hd, B, S, H, KV, hd, causal, "design", k2_block(hd))
     assert max(over) <= 1.0, over
 
 

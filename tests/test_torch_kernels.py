@@ -102,13 +102,13 @@ def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
 def test_build_key_covers_every_header(tmp_path, monkeypatch):
     """Editing a shared header (csrc/*.cuh) changes the key of every library,
     so no library built against the old header is loaded."""
-    assert (_build.CSRC / "tc_bf16.cuh").is_file()
+    assert (_build.CSRC / "hopper.cuh").is_file()
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = _build.sources()
     before = {name: _build.library_path(name).name for name in names}
-    header = tmp_path / "tc_bf16.cuh"
+    header = tmp_path / "hopper.cuh"
     header.write_text(header.read_text() + "// edited\n")
     after = {name: _build.library_path(name).name for name in names}
     assert all(before[name] != after[name] for name in names), (before, after)
