@@ -400,7 +400,33 @@ def resource_usage() -> dict:
                 regs = re.search(r"Used (\d+) registers", line)
                 usage[kernel] = f"{regs.group(1) if regs else '?'} registers, " + usage.get(kernel, "")
                 kernel = None
+    if "ssd_scan" in _build.compiler_output:
+        usage["ssd_intra_chunk_kernel roles"] = k3_roles()
     return usage
+
+
+def k3_roles() -> str:
+    """K3's forward by role: the registers setmaxnreg gives its producer
+    and consumer warpgroups (ptxas's count above is the launch count, for
+    both), and the highest register each instantiation's SASS names, which
+    shows whether the consumers' code uses the budget above the launch count
+    (cuobjdump, beside nvcc). Spills are ptxas's, one count for both roles."""
+    lib = _build.library("ssd_scan")
+    roles = (f"producer {lib.ssd_intra_chunk_registers(0)} registers, consumers "
+             f"{lib.ssd_intra_chunk_registers(1)} (setmaxnreg)")
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path("ssd_scan"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    highest, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = (f"ssd_intra_chunk_kernel<{'bf16' if 'bfloat16' in line else 'float'}>"
+                      if "ssd_intra_chunk_kernel" in line else None)
+        elif kernel:
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            highest[kernel] = max([highest.get(kernel, 0)] + regs)
+    return roles + "; highest register in the SASS: " + ", ".join(
+        f"{k} R{v}" for k, v in sorted(highest.items()))
 
 
 def device_line() -> str:
@@ -1355,12 +1381,19 @@ def check_k3(gen) -> dict:
              ((1, 4, 128, 48, 64, 128), bf16),      # mamba2-780m, N 128
              ((2, 8, 64, 64, 64, 64), bf16),        # Q 64
              ((1, 2, 128, 4, 128, 128), bf16),      # hp = N = Q = 128
-             ((1, 2, 128, 2, 128, 128), f32),       # the same, one x buffer
-             # edges of the 16 x 8 tensor-core tiles, and rows that are not
-             # a multiple of 16 bytes (loaded without cp.async)
+             ((1, 2, 128, 2, 128, 128), f32),       # the same, x split in parts
+             # edges of the tensor-core tiles, and rows that are not a
+             # multiple of 16 bytes (no TMA, no cp.async)
              ((1, 1, 33, 3, 12, 20), f32),
              ((1, 1, 33, 3, 12, 20), bf16),
              ((2, 1, 16, 16, 8, 4), bf16),
+             # the forward's 64-row warpgroup tiles with a ragged Q, nh not a
+             # multiple of its 16 heads a block, and rows of x, y and the
+             # state that TMA cannot take (ordinary loads and stores)
+             ((1, 2, 100, 5, 64, 64), bf16),
+             ((1, 3, 128, 20, 64, 64), bf16),
+             ((1, 2, 48, 6, 9, 7), bf16),
+             ((1, 2, 48, 6, 9, 7), f32),
              ((0, 2, 32, 4, 8, 4), bf16)]           # B * nc = 0: nothing to launch
     errors, bwd_errors = {}, {}
     for shape, xdtype in cases:
@@ -1382,10 +1415,13 @@ def check_k3(gen) -> dict:
             continue
         errors[key] = hold_k3(got, args)
         bwd_errors[key] = hold_k3_backward(got_bwd, args, grads)
+        again = ssd.ssd_intra_chunk_cuda(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K3 {key}: two runs differ")
         again = ssd.ssd_intra_chunk_bwd_cuda(*args, *grads)
         if not all(torch.equal(a, b) for a, b in zip(got_bwd, again)):
             raise AssertionError(f"K3 backward {key}: two runs differ")
-    print(f"K3 vs plain on the card, max abs error (y, state, decay): "
+    print(f"K3 vs plain on the card, max abs error (y, state, decay), two runs bit for bit: "
           f"{json.dumps(errors)}")
     print(f"K3 backward vs plain on the card: {json.dumps(bwd_errors)}")
 
@@ -2694,9 +2730,10 @@ def time_k2_cross(gen) -> dict:
                   **errors, library_max_abs_err=lib_err)
 
 
-def time_k3(gen) -> dict:
-    """K3 at the serving prefill's shape: kernel and plain times."""
-    B, nc, Q_, nh, hp, N = SERVE_BATCH, SERVE_PROMPT // 128, 128, 64, 64, 64
+def time_k3(gen, shape=None) -> dict:
+    """K3 at ``shape`` (B, nc, Q, nh, hp, N), x bf16, by default the serving
+    prefill's: kernel and plain times."""
+    B, nc, Q_, nh, hp, N = shape or (SERVE_BATCH, SERVE_PROMPT // 128, 128, 64, 64, 64)
     args = ssd_inputs(gen, B, nc, Q_, nh, hp, N)
 
     def kernel(i):
@@ -2707,20 +2744,21 @@ def time_k3(gen) -> dict:
 
     got = kernel(0)
     torch.cuda.synchronize()
-    errs = hold_k3(got, args)                     # held at the main path's shape
+    errs = hold_k3(got, args)                     # held at the path's shape
     print(f"K3 vs plain at {[B, nc, Q_, nh, hp, N]}: {json.dumps(errs)}")
     tri = Q_ * (Q_ + 1) / 2
     cb_ops = B * nc * 2 * N * tri                       # C B^T, lower triangle
     y_ops = B * nc * nh * 2 * hp * tri                  # M x, lower triangle
-    state_ops = B * nc * nh * 2 * Q_ * hp * N           # (x w)^T B
-    # as issued: TF32 tensor-core products, 3 for each float32 product of
-    # C B^T and the state, 2 for M x (x is bf16, exact in TF32)
-    tf32_s = (3 * cb_ops + 2 * y_ops + 3 * state_ops) / TF32_OPS_PER_S
+    state_ops = B * nc * nh * 2 * Q_ * hp * N           # (w B)^T x
+    # as issued: bf16 tensor-core products, 6 for each float32 product of
+    # C B^T (both sides split in three parts), 3 for M x and the state (the
+    # float32 side split, x bf16)
+    issued_s = (6 * cb_ops + 3 * y_ops + 3 * state_ops) / BF16_OPS_PER_S
     f32_s = (cb_ops + y_ops + state_ops) / FP32_OPS_PER_S   # PR 12's CUDA-core figure
     moved = (B * nc * Q_ * nh * hp * (2 + 4) + 2 * B * nc * Q_ * nh * 4
              + 2 * B * nc * Q_ * N * 4 + B * nc * nh * hp * N * 4 + B * nc * nh * 4)
     return timing("ssd_scan", [B, nc, Q_, nh, hp, N], kernel, plain, None,
-                  tf32_s, moved / HBM_BYTES_PER_S, max_abs_err=max(errs),
+                  issued_s, moved / HBM_BYTES_PER_S, max_abs_err=max(errs),
                   operations_fp32_cuda_cores_ms=1e3 * f32_s)
 
 
@@ -2747,9 +2785,9 @@ def time_k3_backward(gen) -> dict:
     # per chunk the lower triangle of C B^T, and dC and dB. dy x^T and C B^T
     # at the float64 tensor cores' rate, as the kernel forms them (float32
     # products leave ddt and dseg about 1e-4 from the exact value: see
-    # hold_k3_backward); the rest at the card's fastest float32-accurate
-    # rate, as time_k3 bounds the forward: 3xTF32, 3 TF32 products for each
-    # float32 one, 2 for x dS (the bf16 x is exact in TF32)
+    # hold_k3_backward); the rest in the 3xTF32 split as the kernel issues
+    # them: 3 TF32 products for each float32 one, 2 for x dS (the bf16 x is
+    # exact in TF32)
     f64_ops = B * nc * (nh * 2 * hp * tri + 2 * N * tri)        # dy x^T, C B^T
     x_ops = B * nc * nh * 2 * Q_ * hp * N                       # x dS
     f32_ops = B * nc * (nh * (2 * hp * tri + 2 * Q_ * hp * N) + 4 * N * tri)
@@ -3014,6 +3052,7 @@ def main() -> int:
     k2["shapes"] = [time_k2_cross(gen), time_k2(gen, K2_HD192_SHAPE),
                     time_k2(gen, K2_TRAIN_SHAPE)]
     k2b["shapes"] = [time_k2_backward_cross(gen), time_k2_backward(gen, K2_HD192_SHAPE)]
+    k3["shapes"] = [time_k3(gen, K3_TRAIN_SHAPE)]
     kernels = [{
         "name": "quorum_commit", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/quorum_commit.cu",

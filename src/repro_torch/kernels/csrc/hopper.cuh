@@ -1,9 +1,12 @@
-// Hopper building blocks shared by K2's bf16 kernels (flash_attention.cu and
-// flash_attention_bwd.cu): tile loads and stores by the Tensor Memory
+// Hopper building blocks shared by the wgmma kernels: K2's bf16 forward and
+// backward (flash_attention.cu, flash_attention_bwd.cu) and K3's forward
+// (ssd_scan.cu): tile loads and stores by the Tensor Memory
 // Accelerator (TMA) on mbarriers, warpgroup products (wgmma.mma_async) with
 // operands in shared memory or, for A, in registers, the shared-memory
 // descriptors and swizzle they read, register hand-over between
-// warpgroups (setmaxnreg), ex2.approx and bf16 packing. sm_90a only.
+// warpgroups (setmaxnreg), ex2.approx and bf16 packing; and, for products at
+// float32 accuracy, the split of a float32 value into three bf16 parts and
+// tensor maps over any contiguous 4-D tensor. sm_90a only.
 //
 // Tiles. A (rows, hd) bf16 tile of a (B, L, heads, hd) tensor lies in shared
 // memory as hd / PC panels of PC = SW / 2 columns, each panel its rows of SW
@@ -106,6 +109,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
 __device__ __forceinline__ void tma_store_wait() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// closes the issuing thread's group of TMA stores issued since the last one
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of the issuing thread's store groups still read
+// shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // makes this thread's ordinary shared-memory writes visible to TMA
 __device__ __forceinline__ void fence_proxy_async() {
@@ -267,6 +280,53 @@ __device__ __forceinline__ void stage_tile(bf16* tile, int rows, int row0,
     *reinterpret_cast<uint32_t*>(base + tile_offset<HD>(rows, r + 8, 8 * j + c)) =
         pack_bf16(acc[4 * j + 2] * s1, acc[4 * j + 3] * s1);
   }
+}
+
+// ---------------------------------------------------------------------------
+// float32 accuracy from bf16 products
+// ---------------------------------------------------------------------------
+//
+// wgmma takes .tf32 operands only K-major from shared memory; bf16 operands
+// may also be MN-major (transposed). A float32 value v is the sum of three
+// bf16 parts: v0, the high 16 bits of v (bf16 truncation), v1 those of
+// v - v0, and v2 = bf16(v - v0 - v1) rounded (each difference exact in
+// float32), to within 2^-23 |v|, float32's own rounding. The truncations
+// are bit masks and byte permutes on the integer pipes; only the last part
+// takes a conversion. A product with one float32 side then takes three bf16
+// products (its parts against the exact bf16 side), and one with two
+// float32 sides the six pairs of parts (p, q) with p + q <= 2; the products
+// of bf16 values are exact and their sums float32.
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+
+// v's high 16 bits, as a float32 value
+__device__ __forceinline__ float bf16_trunc(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xffff0000u);
+}
+
+// the three bf16 parts of v
+__device__ __forceinline__ void split3_bf16(float v, bf16 (&p)[3]) {
+  const float v0 = bf16_trunc(v);
+  v -= v0;
+  const float v1 = bf16_trunc(v);
+  v -= v1;
+  p[0] = __float2bfloat16_rz(v0);  // exact: v0 and v1 are bf16 values
+  p[1] = __float2bfloat16_rz(v1);
+  p[2] = __float2bfloat16_rn(v);
+}
+// the parts of a pair (lo, hi), each part packed in one register with lo in
+// the low half: one register of a bf16 A fragment in each of p0, p1, p2
+__device__ __forceinline__ void split3_bf16(float lo, float hi, uint32_t& p0, uint32_t& p1,
+                                            uint32_t& p2) {
+  float lo0 = bf16_trunc(lo), hi0 = bf16_trunc(hi);
+  p0 = __byte_perm(__float_as_uint(lo0), __float_as_uint(hi0), 0x7632);
+  lo -= lo0;
+  hi -= hi0;
+  lo0 = bf16_trunc(lo);
+  hi0 = bf16_trunc(hi);
+  p1 = __byte_perm(__float_as_uint(lo0), __float_as_uint(hi0), 0x7632);
+  p2 = pack_bf16(lo - lo0, hi - hi0);
 }
 
 // generated: one specialisation per N that the kernels use. wgmma_ss:
@@ -473,6 +533,31 @@ int make_map(CUtensorMap* map, const void* base, int B, int L, int heads) {
                                               : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A map over a contiguous 4-D tensor (dims innermost first) of `type`,
+// `elem` bytes an element, whose box is `box` with 128-byte swizzle (box[0]
+// elements are 128 bytes). TMA needs every stride a multiple of 16 bytes and
+// the base 16-byte aligned: the caller checks dims[0] and the base. Returns
+// a CUDA error code, 0 on success.
+inline int make_map_sw128(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                          const uint64_t (&dims)[4], const uint32_t (&box)[4]) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t d[4], strides[3];
+  cuuint32_t b[4];
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  uint64_t stride = static_cast<uint64_t>(elem);
+  for (int i = 0; i < 4; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    stride *= dims[i];
+    if (i < 3) strides[i] = stride;
+  }
+  const CUresult r = encode(map, type, 4, const_cast<void*>(base), d, strides, b, one,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

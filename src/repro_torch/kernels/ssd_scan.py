@@ -13,13 +13,17 @@ For the intra-chunk block:
     CUDA kernel
     ``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel of
     ``repro/kernels/ssd_scan.py`` (``ssd_intra_chunk`` and its ``_kernel``);
-    that source says what bounds it and how it is designed. Its products
-    run on the TF32 tensor cores in the 3xTF32 split (each float32 operand
-    as the sum of two TF32 values), which keeps float32 accuracy;
+    that source says what bounds it and how it is designed: a producer
+    warpgroup loads each head's x tile by TMA into a ring of stages, two
+    consumer warpgroups run ``wgmma`` products with x as the bf16 operand
+    and the float32 side (M, the state's (w B)ᵀ, C and B) split into three
+    bf16 parts each, which keeps float32 accuracy, and y and the state
+    leave by TMA stores that overlap the next head's products;
   * :func:`ssd_intra_chunk_bwd_cuda` calls ``repro_torch::ssd_intra_chunk_bwd``,
     whose body launches K3's backward,
     ``csrc/ssd_scan_bwd.cu``, over the lower triangle only: Mᵀ dy, B dSᵀ,
-    x dS, dC and dB on the TF32 tensor cores in the same 3xTF32 split, dy xᵀ
+    x dS, dC and dB on the TF32 tensor cores (``mma.sync``) in the 3xTF32
+    split (each float32 operand as the sum of two TF32 values), dy xᵀ
     and C Bᵀ in float64 on the tensor cores, each entry rounded once to
     float32 (ddt and dseg, small differences of large sums, miss 1e-4 of a
     float64 evaluation when those two products carry float32's rounding
@@ -61,7 +65,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import no_dtensor
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
-HEADS_PER_BLOCK = 32     # heads that share one C Bᵀ in the kernel
+HEADS_PER_BLOCK = 16     # heads that share one C Bᵀ in the kernel (a block's)
 BWD_HEADS_PER_BLOCK = 32 # heads whose dC Bᵀ one block of the backward sums
 
 # Kernel launches made by ssd_intra_chunk_cuda and ssd_intra_chunk_bwd_cuda

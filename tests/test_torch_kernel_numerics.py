@@ -4,12 +4,18 @@ The CUDA kernels run only on a GPU (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). What their designs decide about numbers can be shown
 here, in plain torch, against the same limits the card holds them to:
 
-* K3 runs its products as TF32 tensor-core products in the 3xTF32 split:
-  each float32 operand ``a`` becomes ``a_hi = tf32(a)`` and
-  ``a_lo = tf32(a - a_hi)``, and ``a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi``
-  (two products where one side is a bf16 x, which TF32 holds exactly). That
-  stays within ``hold_k3``'s 1e-4 of ``ssd_intra_chunk_plain``; one TF32
-  product of rounded operands does not, so the limit tells the two apart.
+* K3 runs its products as bf16 ``wgmma`` products: x, in bf16, is exact,
+  and each float32 side (M, the state's (w B)ᵀ, C and B, and a float32 x)
+  is the sum of three bf16 parts: ``v0`` and ``v1`` the truncations of ``v``
+  and of ``v - v0`` (their high 16 bits), ``v2`` the rounding of
+  ``v - v0 - v1``; a product of two split sides keeps the pairs of parts
+  (p, q) with p + q <= 2. Emulated k step by k step as issued, that stays
+  within ``hold_k3``'s 1e-4 of ``ssd_intra_chunk_plain``; two parts of M
+  (a truncation and a rounding) miss it, and one part misses it by far. The TF32 route (the 3xTF32 split: each float32
+  operand ``a`` as ``a_hi = tf32(a)`` and ``a_lo = tf32(a - a_hi)``, and
+  ``a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi``, two products where one side
+  is a bf16 x, which TF32 holds exactly), which K3's backward takes, holds
+  the limit too; one TF32 product of rounded operands does not.
 * K3's backward runs its per-head products (Mᵀ dy, B dSᵀ, x dS) and dC, dB
   in the same split, each mma's sum rounded toward zero as the tensor cores
   do, and C Bᵀ and dM = dy xᵀ in float64, each entry rounded once to
@@ -86,8 +92,9 @@ def single_product(eq, a, b):
 
 
 def ssd_emulated(x, dt, seg, Bm, Cm, split: bool):
-    """K3's arithmetic: C Bᵀ, M x and the state product as TF32 products,
-    split (``split``) or single; M formed in float32 as the kernel forms it."""
+    """K3's function by the TF32 route: C Bᵀ, M x and the state product as
+    TF32 products, split (``split``, 3xTF32, as K3's backward issues its
+    products) or single; M formed in float32."""
     Q = x.shape[2]
     product = split_product if split else (lambda eq, a, b, **_: single_product(eq, a, b))
     x_exact = x.dtype == torch.bfloat16
@@ -103,14 +110,15 @@ def ssd_emulated(x, dt, seg, Bm, Cm, split: bool):
     return y, state, torch.exp(seg[:, :, -1, :])
 
 
-def ssd_inputs(seed, B, nc, Q, nh, hp, N, xdtype):
+def ssd_inputs(seed, B, nc, Q, nh, hp, N, xdtype, dt_shift=2.0):
     """K3's inputs as mixer_forward forms them (the distribution of
-    ``chip_smoke.ssd_inputs``), made with numpy."""
+    ``chip_smoke.ssd_inputs``: dt = softplus(z - ``dt_shift``)), made with
+    numpy."""
     rng = np.random.default_rng(seed)
     f = np.float32
     x = torch.from_numpy(rng.normal(size=(B, nc, Q, nh, hp)).astype(f)).to(xdtype)
     dt = torch.nn.functional.softplus(
-        torch.from_numpy(rng.normal(size=(B, nc, Q, nh)).astype(f)) - 2.0)
+        torch.from_numpy(rng.normal(size=(B, nc, Q, nh)).astype(f)) - dt_shift)
     A = -torch.exp(0.5 * torch.from_numpy(rng.normal(size=nh).astype(f)))
     seg = torch.cumsum(dt * A, dim=2)
     Bm, Cm = (torch.from_numpy(rng.normal(size=(B, nc, Q, N)).astype(f)) for _ in range(2))
@@ -150,6 +158,122 @@ def test_k3_single_tf32_fails_the_float32_limit(B, nc, Q, nh, hp, N, xdtype):
         torch.testing.assert_close(y, want, atol=K3_TOL, rtol=K3_TOL)
     # and by far: the largest error is many times the limit
     assert (y - want).abs().max() > 10 * K3_TOL
+
+
+# ---------------------------------------------------------------------------
+# K3's forward (csrc/ssd_scan.cu), product by product as the kernel issues
+# them: wgmma with bf16 operands, each k step of 16 adding the exact sum of
+# its products to the float32 accumulator, rounded toward zero (as
+# ``mma_chain`` below models the tensor cores), the pairs of parts of one k
+# step one after another, smallest first. C Bᵀ (once a chunk): C's and B's
+# three parts, the six pairs with p + q <= 2, over N. Per head M = C Bᵀ L dt
+# formed in float32 (one exp an entry, 0 above the diagonal), split in
+# three, against x: a bf16 x is one exact part, a float32 x three (the six
+# pairs again). The state transposed, (w B)ᵀ x, w_j = dt_j exp(seg_last -
+# seg_j), w B formed in float32 and split the same way. Emulated over the
+# whole k range: the kernel skips the k steps above the diagonal, whose
+# products are all 0 and leave a truncated sum as it is.
+# ---------------------------------------------------------------------------
+
+
+def bf16_parts(v: torch.Tensor, n: int = 3):
+    """float32 ``v`` as ``n`` bf16 parts as ``split3_bf16`` forms them: each
+    but the last the truncation (the high 16 bits) of what the earlier ones
+    leave, the last its rounding (every difference exact in float32)."""
+    parts, rest = [], v.float()
+    for k in range(n):
+        if k < n - 1:
+            part = (rest.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+        else:
+            part = rest.bfloat16().float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+SPLIT_PAIRS = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]   # the kernel's issue order
+
+
+def wgmma_chain(eq, a_parts, b_parts, pairs, k=16):
+    """einsum ``eq`` (one contracted index) as the kernel's chain of bf16
+    wgmma products: per k step of ``k``, for each pair (p, q) of ``pairs`` in
+    order, the exact sum of ``a_parts[p]`` times ``b_parts[q]`` over the step
+    added to the float32 accumulator and rounded toward zero."""
+    ins, _ = eq.split("->")
+    ea, eb = ins.split(",")
+    c = next(c for c in ea if c in eb and c not in eq.split("->")[1])
+    ia, ib, K = ea.index(c), eb.index(c), a_parts[0].shape[ea.index(c)]
+    acc = None
+    for k0 in range(0, K, k):
+        n = min(k, K - k0)
+        for p, q in pairs:
+            term = torch.einsum(eq, a_parts[p].narrow(ia, k0, n).double(),
+                                b_parts[q].narrow(ib, k0, n).double())
+            acc = round_toward_zero((0.0 if acc is None else acc.double()) + term)
+    return acc
+
+
+def ssd_wgmma_emulated(x, dt, seg, Bm, Cm, m_parts: int = 3):
+    """(y, state, decay) as csrc/ssd_scan.cu computes them, with ``m_parts``
+    bf16 parts of M and of (w B)ᵀ (the kernel's 3)."""
+    Q = x.shape[2]
+    if x.dtype == torch.bfloat16:
+        xp, pairs = [x.float()], [(p, 0) for p in range(m_parts - 1, -1, -1)]
+    else:
+        xp, pairs = bf16_parts(x), [pq for pq in SPLIT_PAIRS if pq[0] < m_parts]
+    CB = wgmma_chain("bcin,bcjn->bcij", bf16_parts(Cm), bf16_parts(Bm), SPLIT_PAIRS)
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    M = CB[..., None] * L * dt[:, :, None, :, :]                  # (B,nc,i,j,nh)
+    y = wgmma_chain("bcijh,bcjhp->bcihp", bf16_parts(M, m_parts), xp, pairs)
+    w = dt * torch.exp(seg[:, :, -1:, :] - seg)                     # (B,nc,j,nh)
+    wB = w[..., None] * Bm[:, :, :, None, :]                        # (B,nc,j,nh,N)
+    state = wgmma_chain("bcjhn,bcjhp->bchpn", bf16_parts(wB, m_parts), xp, pairs)
+    return y, state, torch.exp(seg[:, :, -1, :])
+
+
+def k3_over(got, want):
+    """The largest error of each output over ``hold_k3``'s limit (atol =
+    rtol = 1e-4); above 1 is a miss."""
+    return [float(((g.double() - w.double()).abs() / (K3_TOL + K3_TOL * w.double().abs())).max())
+            for g, w in zip(got, want)]
+
+
+# the edges of the wgmma tiles: Q 128 with hp 64 over two 64-row
+# warpgroups is K3_SHAPES' first; a ragged Q across the 64-row boundary;
+# hp and N of two halves with a float32 x
+K3_TILE_EDGES = [(1, 2, 100, 3, 64, 64, torch.bfloat16),
+                 (1, 1, 128, 2, 128, 128, torch.float32)]
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_SHAPES + K3_TILE_EDGES)
+def test_k3_bf16_split_holds_the_float32_limit(B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N, B, nc, Q, nh, hp, N, xdtype)
+    over = k3_over(ssd_wgmma_emulated(*args), ssd.ssd_intra_chunk_plain(*args))
+    assert max(over) < 0.5, over        # within half the limit
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_SHAPES)
+def test_k3_one_bf16_part_fails_the_float32_limit(B, nc, Q, nh, hp, N, xdtype):
+    args = ssd_inputs(Q + N, B, nc, Q, nh, hp, N, xdtype)
+    y_over = k3_over(ssd_wgmma_emulated(*args, m_parts=1), ssd.ssd_intra_chunk_plain(*args))[0]
+    assert y_over > 10, y_over          # by far
+
+
+@pytest.mark.parametrize("dt_shift", [2.0, 0.0])
+def test_k3_two_bf16_parts_miss_the_float32_limit(dt_shift):
+    """Two bf16 parts of M (a truncation, then a rounding) leave 2^-16 of
+    each entry, against three's 2^-23: at zamba2's chunk with 32 heads they
+    miss the limit, where three parts stay within half of it on the same
+    inputs, at ``chip_smoke.ssd_inputs``' dt, softplus(z - 2), and at the
+    larger steps of softplus(z)."""
+    shape = (2, 4, 128, 32, 64, 64)
+    args = ssd_inputs(0, *shape, torch.bfloat16, dt_shift=dt_shift)
+    want = ssd.ssd_intra_chunk_plain(*args)
+    two = k3_over(ssd_wgmma_emulated(*args, m_parts=2), want)
+    three = k3_over(ssd_wgmma_emulated(*args, m_parts=3), want)
+    assert two[0] > 1.0 and max(three) < 0.5, (two, three)
 
 
 # ---------------------------------------------------------------------------
