@@ -378,7 +378,6 @@ SERVED_PHASE_LIMIT_S = 180.0
 HBM_BYTES_PER_S = roofline.HBM_BW
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = roofline.PEAK_FLOPS
-TF32_OPS_PER_S = 495e12
 FP64_OPS_PER_S = 67e12              # float64 on the tensor cores
 L2_BYTES = 50 * 2**20
 GRAPH_READINGS = 5                  # a kernel's ms: the median of this many graph_ms
@@ -401,27 +400,36 @@ def resource_usage() -> dict:
                 usage[kernel] = f"{regs.group(1) if regs else '?'} registers, " + usage.get(kernel, "")
                 kernel = None
     if "ssd_scan" in _build.compiler_output:
-        usage["ssd_intra_chunk_kernel roles"] = k3_roles()
+        usage["ssd_intra_chunk_kernel roles"] = k3_roles("ssd_scan", "ssd_intra_chunk_kernel",
+                                                         "ssd_intra_chunk_registers")
+    if "ssd_scan_bwd" in _build.compiler_output:
+        usage["ssd_bwd_heads_kernel roles"] = k3_roles("ssd_scan_bwd", "ssd_bwd_heads_kernel",
+                                                       "ssd_intra_chunk_bwd_registers")
     return usage
 
 
-def k3_roles() -> str:
-    """K3's forward by role: the registers setmaxnreg gives its producer
-    and consumer warpgroups (ptxas's count above is the launch count, for
-    both), and the highest register each instantiation's SASS names, which
-    shows whether the consumers' code uses the budget above the launch count
-    (cuobjdump, beside nvcc). Spills are ptxas's, one count for both roles."""
-    lib = _build.library("ssd_scan")
-    roles = (f"producer {lib.ssd_intra_chunk_registers(0)} registers, consumers "
-             f"{lib.ssd_intra_chunk_registers(1)} (setmaxnreg)")
+def k3_roles(source: str, kernel_name: str, registers: str) -> str:
+    """A warp-specialised K3 kernel (the forward's or the backward's heads
+    kernel) by role: the registers setmaxnreg gives its producer and
+    consumer warpgroups (the library's ``registers(role)``; ptxas's count
+    above is the launch count, for both), and the highest register each
+    instantiation's SASS names, which shows whether the consumers' code uses
+    the budget above the launch count (cuobjdump, beside nvcc). Spills are
+    ptxas's, one count for both roles."""
+    lib = _build.library(source)
+    roles = (f"producer {getattr(lib, registers)(0)} registers, consumers "
+             f"{getattr(lib, registers)(1)} (setmaxnreg)")
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path("ssd_scan"))],
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(source))],
                           capture_output=True, text=True, timeout=120).stdout
     highest, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = (f"ssd_intra_chunk_kernel<{'bf16' if 'bfloat16' in line else 'float'}>"
-                      if "ssd_intra_chunk_kernel" in line else None)
+            name = line.split("Function :")[1].strip()
+            panels = re.search(r"Li(\d)E", name)
+            kernel = (f"{kernel_name}<{'bf16' if 'bfloat16' in name else 'float'}"
+                      f"{', ' + panels.group(1) if panels else ''}>"
+                      if kernel_name in name else None)
         elif kernel:
             regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
             highest[kernel] = max([highest.get(kernel, 0)] + regs)
@@ -1392,6 +1400,8 @@ def check_k3(gen) -> dict:
              # state that TMA cannot take (ordinary loads and stores)
              ((1, 2, 100, 5, 64, 64), bf16),
              ((1, 3, 128, 20, 64, 64), bf16),
+             # K3's backward at nh past its 32 heads a block (two groups)
+             ((1, 2, 128, 40, 64, 64), bf16),
              ((1, 2, 48, 6, 9, 7), bf16),
              ((1, 2, 48, 6, 9, 7), f32),
              ((0, 2, 32, 4, 8, 4), bf16)]           # B * nc = 0: nothing to launch
@@ -2785,19 +2795,27 @@ def time_k3_backward(gen) -> dict:
     # per chunk the lower triangle of C B^T, and dC and dB. dy x^T and C B^T
     # at the float64 tensor cores' rate, as the kernel forms them (float32
     # products leave ddt and dseg about 1e-4 from the exact value: see
-    # hold_k3_backward); the rest in the 3xTF32 split as the kernel issues
-    # them: 3 TF32 products for each float32 one, 2 for x dS (the bf16 x is
-    # exact in TF32)
+    # hold_k3_backward). The rest split as the kernel issues them, over the
+    # entries the function needs: bf16 wgmma products, six for each of
+    # B dS^T's and M^T dy's (both sides split in three parts), three for
+    # x dS's (the bf16 x exact); M^T dy over the lower triangle (the kernel's
+    # whole 64-row tiles issue more, 12,288 entries for 8,256 at Q 128);
+    # dC and dB by float32 FMAs.
     f64_ops = B * nc * (nh * 2 * hp * tri + 2 * N * tri)        # dy x^T, C B^T
-    x_ops = B * nc * nh * 2 * Q_ * hp * N                       # x dS
-    f32_ops = B * nc * (nh * (2 * hp * tri + 2 * Q_ * hp * N) + 4 * N * tri)
-    ops_s = f64_ops / FP64_OPS_PER_S + (2 * x_ops + 3 * f32_ops) / TF32_OPS_PER_S
+    bf16_ops = B * nc * nh * (6 * 2 * hp * tri                  # M^T dy
+                              + 6 * 2 * Q_ * N * hp             # B dS^T
+                              + 3 * 2 * Q_ * hp * N)            # x dS
+    fma_ops = B * nc * 2 * 2 * N * tri                          # dC, dB
+    ops_s = (f64_ops / FP64_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+             + fma_ops / FP32_OPS_PER_S)
     # x and dx in bf16; dy, dS, dt, seg, B, C, ddecay read and ddt, dseg, dB,
     # dC written in float32
     moved = (B * nc * Q_ * nh * hp * (2 + 4 + 2) + B * nc * nh * hp * N * 4
              + 4 * B * nc * Q_ * nh * 4 + 4 * B * nc * Q_ * N * 4 + B * nc * nh * 4)
     return timing("ssd_scan_bwd", list(K3_TRAIN_SHAPE), kernel, plain, None,
                   ops_s, moved / HBM_BYTES_PER_S, readings=5,
+                  operations_float64_ms=1e3 * f64_ops / FP64_OPS_PER_S,
+                  operations_bf16_wgmma_ms=1e3 * bf16_ops / BF16_OPS_PER_S,
                   max_abs_err=max(v for k, v in errors.items() if k.endswith("max_abs_err")),
                   **errors)
 

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the wgmma kernels: K2's bf16 forward and
-// backward (flash_attention.cu, flash_attention_bwd.cu) and K3's forward
-// (ssd_scan.cu): tile loads and stores by the Tensor Memory
+// backward (flash_attention.cu, flash_attention_bwd.cu) and K3's forward and
+// backward (ssd_scan.cu, ssd_scan_bwd.cu): tile loads and stores by the Tensor Memory
 // Accelerator (TMA) on mbarriers, warpgroup products (wgmma.mma_async) with
 // operands in shared memory or, for A, in registers, the shared-memory
 // descriptors and swizzle they read, register hand-over between
@@ -39,11 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
-
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// the shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // ---------------------------------------------------------------------------
 // device: mbarriers, TMA, warpgroups
@@ -346,6 +349,24 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// A K-major and B MN-major (transposed), both from shared memory
+template <int N>
+__device__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<64>(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

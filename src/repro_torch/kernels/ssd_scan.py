@@ -20,16 +20,19 @@ For the intra-chunk block:
     bf16 parts each, which keeps float32 accuracy, and y and the state
     leave by TMA stores that overlap the next head's products;
   * :func:`ssd_intra_chunk_bwd_cuda` calls ``repro_torch::ssd_intra_chunk_bwd``,
-    whose body launches K3's backward,
-    ``csrc/ssd_scan_bwd.cu``, over the lower triangle only: Mᵀ dy, B dSᵀ,
-    x dS, dC and dB on the TF32 tensor cores (``mma.sync``) in the 3xTF32
-    split (each float32 operand as the sum of two TF32 values), dy xᵀ
-    and C Bᵀ in float64 on the tensor cores, each entry rounded once to
-    float32 (ddt and dseg, small differences of large sums, miss 1e-4 of a
-    float64 evaluation when those two products carry float32's rounding
-    error, as :func:`ssd_intra_chunk_bwd_plain`'s do). The JAX
-    package has no Pallas backward: it differentiates
-    ``repro.models.mamba2.ssd_chunked``;
+    whose body launches K3's backward, ``csrc/ssd_scan_bwd.cu``: a heads
+    kernel on the forward's pattern (a producer warpgroup loads each head's
+    x, dy and dS by TMA and forms dy's and dS's three bf16 parts, two
+    consumer warpgroups run B dSᵀ, x dS and Mᵀ dy as bf16 ``wgmma``
+    products over the lower triangle), in which dy xᵀ and C Bᵀ stay float64
+    products on the tensor cores (``mma.sync`` m16n8k8), each entry rounded
+    once to float32 (ddt and dseg, small differences of large sums, miss
+    1e-4 of a float64 evaluation when those two products carry float32's
+    rounding error, as :func:`ssd_intra_chunk_bwd_plain`'s do), and a
+    block's sums over its 32 heads of dC Bᵀ and of the state's part of dB
+    stay on chip until its last head; then a small kernel sums the head
+    groups in order and forms dC and dB. The JAX package has no Pallas
+    backward: it differentiates ``repro.models.mamba2.ssd_chunked``;
   * :func:`ssd_intra_chunk_plain` is the plain PyTorch version, the
     intra-chunk terms of ``repro.models.mamba2.ssd_chunked``, and
     :func:`ssd_intra_chunk_bwd_plain` the closed form of its gradient, which
@@ -66,7 +69,7 @@ from repro_torch.kernels.flash_attention import no_dtensor
 
 MAX_DIM = 128            # largest Q, hp and N the kernel takes
 HEADS_PER_BLOCK = 16     # heads that share one C Bᵀ in the kernel (a block's)
-BWD_HEADS_PER_BLOCK = 32 # heads whose dC Bᵀ one block of the backward sums
+BWD_HEADS_PER_BLOCK = 32 # heads whose partial sums one block of the backward keeps
 
 # Kernel launches made by ssd_intra_chunk_cuda and ssd_intra_chunk_bwd_cuda
 # since the counts were last reset.
@@ -365,7 +368,8 @@ def _ssd_intra_chunk_bwd_launch(
         return dx, ddt, dseg, dBm, dCm
     heads = min(nh, BWD_HEADS_PER_BLOCK)
     groups = -(-nh // heads)
-    # each head group's partial sums over its heads: dC Bᵀ (Q, Q), then the
+    # each head group's partial sums over its heads, written once by the
+    # heads kernel and summed by the dC/dB kernel: dC Bᵀ (Q, Q), then the
     # state's part of dB (Q, N)
     scratch = torch.empty((B * nc * groups * Q * (Q + N),), dtype=torch.float32,
                           device=device)

@@ -427,7 +427,13 @@ def ssd_output_grads(seed, B, nc, Q, nh, hp, N, device):
     (2, 2, 128, 4, 64, 64, torch.bfloat16), (1, 3, 64, 9, 32, 16, torch.float32),
     (1, 2, 128, 2, 128, 128, torch.float32), (1, 1, 33, 3, 12, 20, torch.float32),
     (1, 1, 33, 3, 12, 20, torch.bfloat16), (2, 1, 16, 16, 8, 4, torch.bfloat16),
-    (1, 1, 128, 40, 64, 128, torch.bfloat16), (1, 1, 1, 1, 1, 1, torch.float32)])
+    (1, 1, 128, 40, 64, 128, torch.bfloat16), (1, 1, 1, 1, 1, 1, torch.float32),
+    # the wgmma kernel's edges: a ragged Q over its two 64-row warpgroups, nh
+    # not a multiple of its 32 heads a block, rows TMA cannot take (ordinary
+    # loads), N 128 as two panels of dS, hp 128 as two halves with a bf16 x
+    (1, 2, 100, 5, 64, 64, torch.bfloat16), (1, 3, 128, 40, 64, 64, torch.bfloat16),
+    (1, 2, 48, 6, 9, 7, torch.bfloat16), (1, 2, 48, 6, 9, 7, torch.float32),
+    (1, 2, 128, 4, 64, 128, torch.bfloat16), (1, 2, 128, 3, 128, 64, torch.bfloat16)])
 def test_ssd_backward_kernel_matches_plain(no_tf32, B, nc, Q, nh, hp, N, xdtype):
     args = ssd_inputs(Q + N, B, nc, Q, nh, hp, N, xdtype, no_tf32)
     grads = ssd_output_grads(Q, B, nc, Q, nh, hp, N, no_tf32)

@@ -14,15 +14,18 @@ here, in plain torch, against the same limits the card holds them to:
   (a truncation and a rounding) miss it, and one part misses it by far. The TF32 route (the 3xTF32 split: each float32
   operand ``a`` as ``a_hi = tf32(a)`` and ``a_lo = tf32(a - a_hi)``, and
   ``a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi``, two products where one side
-  is a bf16 x, which TF32 holds exactly), which K3's backward takes, holds
-  the limit too; one TF32 product of rounded operands does not.
-* K3's backward runs its per-head products (Mᵀ dy, B dSᵀ, x dS) and dC, dB
-  in the same split, each mma's sum rounded toward zero as the tensor cores
-  do, and C Bᵀ and dM = dy xᵀ in float64, each entry rounded once to
-  float32. It stays within ``hold_k3_backward``'s 1e-4 of
+  is a bf16 x, which TF32 holds exactly), which both K3 kernels took before
+  their wgmma redesigns, holds the limit too; one TF32 product of rounded
+  operands does not.
+* K3's backward runs its per-head products (B dSᵀ, x dS, Mᵀ dy) as bf16
+  wgmma products in the same three-part split, each k step's sum rounded
+  toward zero, and C Bᵀ and dM = dy xᵀ in float64, each entry rounded once
+  to float32. It stays within ``hold_k3_backward``'s 1e-4 of
   ``ssd_intra_chunk_bwd_plain`` evaluated in float64 (float32 gradients)
-  and its bf16 row rule; single TF32 products miss it by far, and so do
-  C Bᵀ and dM in 3xTF32, over enough gradients.
+  and its bf16 row rule; one bf16 part misses it by far, two miss it over a
+  chunk of 128. Its earlier 3xTF32 route held it too, single TF32 products
+  missed it by far, and so do C Bᵀ and dM in 3xTF32, over enough
+  gradients: the reason both routes keep those two products in float64.
 * K2 in bf16 rounds its unnormalised probabilities P to bf16, tile by tile
   of 128 keys (64 at hd 192; 64 before the wgmma kernels), for the P V
   product, and sums the rounded P. Measured as each
@@ -194,16 +197,16 @@ def bf16_parts(v: torch.Tensor, n: int = 3):
 SPLIT_PAIRS = [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]   # the kernel's issue order
 
 
-def wgmma_chain(eq, a_parts, b_parts, pairs, k=16):
+def wgmma_chain(eq, a_parts, b_parts, pairs, k=16, acc=None):
     """einsum ``eq`` (one contracted index) as the kernel's chain of bf16
     wgmma products: per k step of ``k``, for each pair (p, q) of ``pairs`` in
     order, the exact sum of ``a_parts[p]`` times ``b_parts[q]`` over the step
-    added to the float32 accumulator and rounded toward zero."""
+    added to the float32 accumulator (``acc``, else zeros) and rounded
+    toward zero."""
     ins, _ = eq.split("->")
     ea, eb = ins.split(",")
     c = next(c for c in ea if c in eb and c not in eq.split("->")[1])
     ia, ib, K = ea.index(c), eb.index(c), a_parts[0].shape[ea.index(c)]
-    acc = None
     for k0 in range(0, K, k):
         n = min(k, K - k0)
         for p, q in pairs:
@@ -278,7 +281,13 @@ def test_k3_two_bf16_parts_miss_the_float32_limit(dt_shift):
 
 # ---------------------------------------------------------------------------
 # K3's backward (csrc/ssd_scan_bwd.cu), product by product as the kernels
-# issue them. In TF32, mma.sync m16n8k8 over k in steps of 8,
+# issue them. Since its wgmma redesign (``ssd_bwd_wgmma``): bf16 products,
+# k steps of 16, the pairs of three parts in SPLIT_PAIRS' order (x dS: x
+# exact against dS's parts, smallest first), each step's exact sum added to
+# the float32 accumulator and rounded toward zero; dx's accumulator starts
+# as w_j T_j; C Bᵀ and dM in float64, rounded once; dC and dB by float32
+# FMAs. Before it (``ssd_bwd_emulated``'s TF32 modes, kept for the route's
+# record and for the float64 decision below): In TF32, mma.sync m16n8k8 over k in steps of 8,
 # each step's TF32 products (lo.hi, hi.lo, then hi.hi in the 3xTF32 split;
 # the bf16 x exact, against dS's lo then hi) added to the float32
 # accumulator one mma at a time. The tensor cores form each mma's sum
@@ -337,12 +346,18 @@ def mma_chain(eq, a, b, a_exact=False, b_exact=False, split=True, acc=None, fres
     return acc
 
 
-def ssd_bwd_emulated(x, dt, seg, Bm, Cm, dy, dstate, ddecay, split: bool,
-                     float64_products: bool = True):
-    """(dx, ddt, dseg, dB, dC) as K3's backward kernels compute them, their
-    TF32 products split (``split``) or single. ``float64_products``: C Bᵀ
-    and dM in float64, rounded once, as the kernel forms them; else as TF32
-    products too."""
+def ssd_bwd_emulated(x, dt, seg, Bm, Cm, dy, dstate, ddecay, split: bool = True,
+                     float64_products: bool = True, wgmma_parts: int | None = None):
+    """(dx, ddt, dseg, dB, dC) as K3's backward kernels compute them.
+    ``wgmma_parts`` set: the kernel's route (csrc/ssd_scan_bwd.cu), its
+    float32 products as bf16 wgmma products with each float32 side in that
+    many bf16 parts (the kernel's 3; see ``ssd_bwd_wgmma``). Else the route
+    the kernel took before its wgmma redesign: its TF32 products (mma.sync)
+    split (``split``, 3xTF32) or single. ``float64_products``: C Bᵀ and dM in
+    float64, rounded once, as both routes form them; else as TF32 products
+    too."""
+    if wgmma_parts is not None:
+        return ssd_bwd_wgmma(x, dt, seg, Bm, Cm, dy, dstate, ddecay, wgmma_parts)
     Q = x.shape[2]
     x_exact = x.dtype == torch.bfloat16
     xf = x.float()
@@ -372,6 +387,72 @@ def ssd_bwd_emulated(x, dt, seg, Bm, Cm, dy, dstate, ddecay, split: bool,
     dCB = (dM * (L * dt_j)).sum(-1)
     dC = mma_chain("bcij,bcjn->bcin", dCB, Bm, split=split)
     dB = mma_chain("bcij,bcin->bcjn", dCB, Cm, split=split) + (w[..., None] * R).sum(3)
+    return dx.to(x.dtype), ddt, dseg, dB, dC
+
+
+def split_pairs(parts: int, a_exact: bool = False):
+    """The pairs of parts the kernel issues for a product of two sides split
+    in ``parts`` bf16 parts (SPLIT_PAIRS' order), or of an exact bf16 side
+    (``a_exact``: one part, 0) against a split one (smallest first)."""
+    if a_exact:
+        return [(0, q) for q in range(parts - 1, -1, -1)]
+    return [pq for pq in SPLIT_PAIRS if max(pq) < parts]
+
+
+def ssd_bwd_wgmma(x, dt, seg, Bm, Cm, dy, dstate, ddecay, parts: int = 3,
+                  dw_from_t: bool = False):
+    """(dx, ddt, dseg, dB, dC) as csrc/ssd_scan_bwd.cu computes them, with
+    ``parts`` bf16 parts of each float32 side of its wgmma products (the
+    kernel's 3). C Bᵀ and dM = dy xᵀ in float64, rounded once (mma.sync).
+    Per head, k steps of 16, the pairs in issue order, each step's exact sum
+    added to the float32 accumulator and rounded toward zero: T = B dSᵀ over
+    N (B's and dS's parts), scaled by w_j in float32 into dx, which then
+    takes M^T dy over i (M's and dy's parts); R = x dS over hp (a bf16 x
+    exact, a float32 x split too), w_j R_j summed over the heads in float32,
+    and dw_j = B_j . R_j (``dw_from_t``: x_j . T_j, which misses ddt's limit
+    at N 128, T's chain of truncated sums being 8 k steps long there).
+    Then K, the row and column sums, dC B^T as in ``ssd_bwd_emulated``, and
+    dC = dCB B, dB = dCBᵀ C + (the state part) in float32 (the dC/dB kernel's
+    FMAs)."""
+    Q, hp = x.shape[2], x.shape[-1]
+    x_exact = x.dtype == torch.bfloat16
+    xf = x.float()
+    xp = [xf] if x_exact else bf16_parts(xf, parts)
+    CB = torch.einsum("bcin,bcjn->bcij", Cm.double(), Bm.double()).float()
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dy.double(), xf.double()).float()
+    diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]      # (B,nc,i,j,nh)
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()[None, None, :, :, None]
+    L = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)), 0.0)
+    dt_j = dt[:, :, None, :, :]
+    e = torch.exp(seg[:, :, -1:, :] - seg)
+    w = e * dt
+    pairs = split_pairs(parts)
+    T = wgmma_chain("bcjn,bchpn->bcjhp", bf16_parts(Bm, parts), bf16_parts(dstate, parts), pairs)
+    M = CB[..., None] * (L * dt_j)                            # (B,nc,i,j,nh)
+    dx = wgmma_chain("bcijh,bcihp->bcjhp", bf16_parts(M, parts), bf16_parts(dy, parts), pairs,
+                     acc=w[..., None] * T)
+    # R over each half of hp in a fresh accumulator, w_j R_j added per half;
+    # dw_j = x_j . T_j taken as B_j . R_j (R's short chains)
+    R_pairs = split_pairs(parts, a_exact=x_exact)
+    dBs = dw = None
+    for p0 in range(0, hp, 64):
+        sl = slice(p0, min(hp, p0 + 64))
+        R = wgmma_chain("bcjhp,bchpn->bcjhn", [v[..., sl] for v in xp],
+                        bf16_parts(dstate[..., sl, :], parts), R_pairs)
+        term, dw_half = w[..., None] * R, (Bm[:, :, :, None, :] * R).sum(-1)
+        dBs = term if dBs is None else dBs + term
+        dw = dw_half if dw is None else dw + dw_half
+    if dw_from_t:
+        dw = (xf * T).sum(-1)
+    K = dM * CB[..., None] * L
+    colK = K.double().sum(2).float()
+    ddt = colK + dw * e
+    dseg = (K * dt_j).sum(3) - dt * colK - dw * w
+    last = (dw * w).sum(2) + ddecay * torch.exp(seg[:, :, -1, :])
+    dseg = torch.cat([dseg[:, :, :-1], dseg[:, :, -1:] + last[:, :, None]], dim=2)
+    dCB = (dM * (L * dt_j)).sum(-1)
+    dC = torch.einsum("bcij,bcjn->bcin", dCB, Bm)
+    dB = torch.einsum("bcij,bcin->bcjn", dCB, Cm) + dBs.sum(3)
     return dx.to(x.dtype), ddt, dseg, dB, dC
 
 
@@ -414,8 +495,71 @@ K3_BWD_SHAPES = [(1, 1, 128, 2, 64, 64, torch.bfloat16),   # zamba2's chunk, two
                  (2, 1, 64, 2, 32, 16, torch.bfloat16)]
 
 
+def k3_backward_case(B, nc, Q, nh, hp, N, xdtype):
+    """Inputs and output gradients of a K3_BWD_SHAPES case, made with numpy."""
+    return (ssd_inputs(Q + N + nh, B, nc, Q, nh, hp, N, xdtype),
+            ssd_output_grads(Q + hp, B, nc, Q, nh, hp, N))
+
+
+# mamba2-780m's chunk (N 128) with 48 heads: enough gradients to show dw's
+# error through T (``test_k3_backward_dw_from_t_misses_the_limit``)
+K3_BWD_N128_HEADS = (1, 4, 128, 48, 64, 128, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES + [K3_BWD_N128_HEADS])
+def test_k3_backward_bf16_parts_hold_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    """The kernel's route: three bf16 parts of each float32 side of its
+    wgmma products, dy xᵀ and C Bᵀ in float64 rounded once; every gradient
+    within half of ``hold_k3_backward``'s limit (a bf16 dx's row error within
+    the plain version's)."""
+    args, grads = k3_backward_case(B, nc, Q, nh, hp, N, xdtype)
+    over = k3_backward_over(ssd_bwd_emulated(*args, *grads, wgmma_parts=3), args, grads)
+    assert max(over.values()) <= 0.5, over
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES)
+def test_k3_backward_one_bf16_part_fails_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    """One bf16 part of each float32 side (its truncation to bf16): some
+    float32 gradient misses the limit by more than ten times."""
+    args, grads = k3_backward_case(B, nc, Q, nh, hp, N, xdtype)
+    misses = k3_backward_misses(ssd_bwd_emulated(*args, *grads, wgmma_parts=1), args, grads)
+    assert max(misses.values(), default=0.0) > 10, misses
+
+
+@pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", [
+    (2, 4, 128, 32, 64, 64, torch.bfloat16),     # zamba2's chunk, 32 heads
+    K3_BWD_N128_HEADS,                           # mamba2-780m's, 48 heads
+    (1, 1, 128, 2, 128, 128, torch.float32)])    # hp = N = Q = 128, float32 x
+def test_k3_backward_two_bf16_parts_miss_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    """Two bf16 parts (a truncation, then a rounding: 2^-16 of each value
+    left, against three parts' 2^-23) miss the limit over full chunks of
+    128 with many heads (ddt and dseg at a bf16 x, dx at a float32 x), where
+    three stay within half of it on the same inputs. (With one or two bf16
+    heads at N 64, K3_BWD_SHAPES' first, two parts stay within it.)"""
+    args, grads = k3_backward_case(B, nc, Q, nh, hp, N, xdtype)
+    two = k3_backward_over(ssd_bwd_emulated(*args, *grads, wgmma_parts=2), args, grads)
+    three = k3_backward_over(ssd_bwd_emulated(*args, *grads, wgmma_parts=3), args, grads)
+    if xdtype == torch.bfloat16:   # a bf16 dx's entry is the row rule's ratio, not a float32 limit
+        del two["dx"], three["dx"]
+    assert max(two.values()) > 1.0 and max(three.values()) < 0.5, (two, three)
+
+
+def test_k3_backward_dw_from_t_misses_the_limit():
+    """dw_j = x_j . T_j, with T = B dSᵀ a chain of 8 k steps of truncated
+    sums at N 128, misses ddt's limit at mamba2-780m's chunk with 48 heads;
+    B_j . R_j, R = x dS's chains of 4 (x exact), holds it within half, on the
+    same inputs."""
+    args = ssd_inputs(0, *K3_BWD_N128_HEADS)
+    grads = ssd_output_grads(7, *K3_BWD_N128_HEADS[:-1])
+    from_t = k3_backward_over(ssd_bwd_wgmma(*args, *grads, dw_from_t=True), args, grads)
+    from_r = k3_backward_over(ssd_bwd_wgmma(*args, *grads), args, grads)
+    assert from_t["ddt"] > 1.0 and from_r["ddt"] < 0.5, (from_t, from_r)
+
+
 @pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES)
 def test_k3_backward_3xtf32_split_holds_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    """The route of the kernel before its wgmma redesign (mma.sync TF32 in
+    the 3xTF32 split) held the limit too."""
     args = ssd_inputs(Q + N + nh, B, nc, Q, nh, hp, N, xdtype)
     grads = ssd_output_grads(Q + hp, B, nc, Q, nh, hp, N)
     got = ssd_bwd_emulated(*args, *grads, split=True)
@@ -424,6 +568,7 @@ def test_k3_backward_3xtf32_split_holds_the_limit(B, nc, Q, nh, hp, N, xdtype):
 
 @pytest.mark.parametrize("B,nc,Q,nh,hp,N,xdtype", K3_BWD_SHAPES)
 def test_k3_backward_single_tf32_fails_the_limit(B, nc, Q, nh, hp, N, xdtype):
+    """Single TF32 products on that route failed it by far."""
     args = ssd_inputs(Q + N + nh, B, nc, Q, nh, hp, N, xdtype)
     grads = ssd_output_grads(Q + hp, B, nc, Q, nh, hp, N)
     misses = k3_backward_misses(ssd_bwd_emulated(*args, *grads, split=False), args, grads)
@@ -433,9 +578,11 @@ def test_k3_backward_single_tf32_fails_the_limit(B, nc, Q, nh, hp, N, xdtype):
 
 def test_k3_backward_3xtf32_cb_and_dm_miss_the_limit():
     """C Bᵀ and dM in 3xTF32 (each mma's sum truncated) instead of rounded
-    once from float64: over three draws at zamba2's chunk with 32 heads, ddt
-    or dseg misses the float64 1e-4, where the design stays within half of
-    it. The other gradients do not depend on the choice."""
+    once from float64, on the 3xTF32 route the kernel took before its wgmma
+    redesign: over three draws at zamba2's chunk with 32 heads, ddt or dseg
+    misses the float64 1e-4, where float64 products stay within half of it.
+    The other gradients do not depend on the choice; the wgmma route keeps
+    the float64 products for this reason."""
     shape = (2, 4, 128, 32, 64, 64)
     worst = {True: 0.0, False: 0.0}
     for seed in range(3):
